@@ -33,3 +33,9 @@ REFERENCE_ROOT = "/root/reference"
 
 def reference_path(*parts):
     return os.path.join(REFERENCE_ROOT, *parts)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips with a reason where there is none"
+    )
