@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by nvcc for ``sm_90a`` into ONE shared
-library with a plain C interface (no PyTorch headers, so a build takes seconds).
+Every ``csrc/*.cu`` file is compiled by its own nvcc for ``sm_90a``, all of them
+started together, and the objects are linked into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds).
 The library lives in ``remo3d_tpu_torch/_build/`` under a name keyed on a hash of
 the sources and flags, so an edited kernel is rebuilt and an unchanged one is
 loaded as it is. Nothing outside the package's own sources goes into the build.
@@ -23,7 +24,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # C entry points: name -> argtypes. Every pointer and the stream are c_void_p
@@ -32,6 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "stencil2d_half_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "stencil2d_half_f64": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "stencil3d_half_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "stencil3d_half_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _library = None
@@ -73,22 +76,29 @@ def load_library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Build to a private name, then rename: concurrent builders never load
-        # a half-written library.
         nvcc = _nvcc()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+        # Build in a private directory, then rename: concurrent builders never
+        # load a half-written library.
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objects = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+            compiles = [
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                for src, obj in zip(_sources(), objects)
+            ]
+            procs = [
+                subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for cmd in compiles
+            ]
+            results = [(cmd, proc, proc.communicate()) for cmd, proc in zip(compiles, procs)]
+            so = os.path.join(tmp, out.name)
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objects]
+            for cmd, proc, (_, err) in results:
+                if proc.returncode != 0:
+                    raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            proc = subprocess.run(link, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise BuildError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-                )
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+                raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+            os.replace(so, out)
     try:
         lib = ctypes.CDLL(str(out))
     except OSError as e:

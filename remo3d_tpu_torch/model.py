@@ -1,12 +1,13 @@
 # -*- coding: utf-8 -*-
-"""Public API: the ``Model`` class, the port of ``remo3d_tpu.Model`` (2D slice).
+"""Public API: the ``Model`` class, the port of ``remo3d_tpu.Model``.
 
 Same surface as the JAX package: ``compute_synthetic_logs`` (one-shot pipeline),
 the lifecycle ``set_model_parameters`` / ``initialize_workers`` /
 ``simulate_logs`` / ``shutdown_workers``, and ``save_results``. It takes the same
-numpy formation and borehole arrays (or files) and returns the same logs. The
-solves run on one torch device: a CUDA card by default when one is visible,
-otherwise the CPU. Dipping layers (dip != 0) are not ported yet.
+numpy formation and borehole arrays (or files) and returns the same logs: the 2D
+axisymmetric solver at dip 0, the 3D dipping-layer solver otherwise. The solves
+run on one torch device: the CUDA card by default, which raises when no card is
+visible; the CPU only when the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,12 +19,77 @@ import numpy as np
 
 from . import io as mio
 from .meshing.grid2d import GridSpec2D
+from .meshing.grid3d import THIN_ANNULUS_MIN_CELLS, GridSpec3D
 from .parallel.runtime import Executor, ExecutorConfig
 from .planner import plan_tasks
 from .plotting import save_results_impl
 from .tools import parse_tools
 
 conversion_table = mio.CONVERSION_TABLE
+
+# Dip angle (degrees) at or above which the default 3D grid switches to the
+# refined GridSpec3D.high_dip() preset: the rotated layered-medium oracle puts
+# the default grid at 0.43% max for dips <= 45 but 1.05% at 60, where
+# high_dip() measures 0.50% (benchmarks/bm3_oracle.py, the JAX package).
+HIGH_DIP_THRESHOLD_DEG = 50.0
+
+
+def _thin_annulus_refine(spec, formation, borehole):
+    """Refine the radial grading when an invasion annulus is under-resolved.
+
+    Returns (spec, notice_or_None). The thinnest annulus is measured against
+    the maximum caliper radius; if it spans fewer than
+    ``THIN_ANNULUS_MIN_CELLS`` cells of ``spec.h_min_radial``, the spec gets
+    ``nr >= 65`` and ``fz_h_radial <= thickness/THIN_ANNULUS_MIN_CELLS``: a
+    refinement local to the under-resolved invasion boundaries only.
+    """
+    spec = spec or GridSpec3D()
+    fz = np.asarray(formation[:, 2], dtype=float)
+    wall_max = float(np.max(borehole[:, 1]))
+    finite = np.isfinite(fz) & (fz > wall_max)
+    if not np.any(finite):
+        return spec, None
+    t_min = float(np.min(fz[finite]) - wall_max)
+    if t_min >= THIN_ANNULUS_MIN_CELLS * spec.h_min_radial:
+        return spec, None
+    target_h = t_min / THIN_ANNULUS_MIN_CELLS
+    fz_h = target_h if spec.fz_h_radial is None else min(spec.fz_h_radial, target_h)
+    refined = dataclasses.replace(spec, nr=max(spec.nr, 65), fz_h_radial=fz_h)
+    notice = (
+        f"Note: thinnest invasion annulus ({t_min:.3f} m over the maximum "
+        f"caliper) spans < {THIN_ANNULUS_MIN_CELLS:g} radial cells of the "
+        f"default 3D grid; auto-refining to nr={refined.nr}, "
+        f"fz_h_radial={refined.fz_h_radial:.4f} at the thin invasion anchors "
+        "(pass grid_spec3d=GridSpec3D() to override)"
+    )
+    return refined, notice
+
+
+def _resolve_spec3d(dip_deg, grid_spec3d, executor_overrides, formation, borehole):
+    """Dip- and invasion-aware 3D grid default: an explicit ``grid_spec3d``
+    (or an ``executor_overrides['spec3d']``, which replaces the config
+    downstream) always wins; otherwise steep dips auto-select
+    ``GridSpec3D.high_dip()`` and thin invasion annuli refine the radial
+    grading. Returns (spec_or_None, [notices]); None means the ExecutorConfig
+    default stands."""
+    if grid_spec3d is not None:
+        return grid_spec3d, []
+    if executor_overrides and "spec3d" in executor_overrides:
+        return None, []
+    notices = []
+    spec = None
+    if dip_deg >= HIGH_DIP_THRESHOLD_DEG:
+        spec = GridSpec3D.high_dip()
+        notices.append(
+            f"Note: dip {dip_deg:g} deg >= {HIGH_DIP_THRESHOLD_DEG:g} auto-selects "
+            "the refined GridSpec3D.high_dip() grid (~3x solve cost; pass "
+            "grid_spec3d=GridSpec3D() to keep the default grid)"
+        )
+    spec2, notice = _thin_annulus_refine(spec, formation, borehole)
+    if notice is not None:
+        spec = spec2
+        notices.append(notice)
+    return spec, notices
 
 
 class Model:
@@ -178,6 +244,7 @@ class Model:
         maxiter=1000,
         dtype="float32",
         grid_spec: GridSpec2D | None = None,
+        grid_spec3d: GridSpec3D | None = None,
         device=None,
         verbose=True,
         profile_dir=None,
@@ -186,26 +253,27 @@ class Model:
     ):
         """Simulate all logs; returns {tool name: (n, 2) [depth, Ra]}.
 
-        ``preconditioner``: "auto" (= "multigrid"), "multigrid" or "local".
-        ``device``: a torch device string ("cuda", "cuda:1", "cpu"); None picks
-        "cuda" when a card is visible. ``tol`` (None = 3e-7), ``dtype``
-        ("float32" or "float64", both on CUDA and CPU), ``grid_spec`` and
+        ``preconditioner`` (2D): "auto" (= "multigrid"), "multigrid" or "local";
+        the 3D solver takes ``executor_overrides={"precond3d": ...}`` ("auto" =
+        "adi", or "lines").
+        ``device``: a torch device string ("cuda", "cuda:1", "cpu"); None means
+        "cuda" and raises when no card is visible. ``tol`` (None = 3e-7 in 2D,
+        1e-5 for the singularity-subtracted 3D solve), ``dtype`` ("float32" or
+        "float64", both on CUDA and CPU), ``grid_spec`` / ``grid_spec3d`` (when
+        omitted, dips >= 50 deg select ``GridSpec3D.high_dip()`` and thin
+        invasion annuli refine the radial grading, see ``_resolve_spec3d``) and
         ``executor_overrides`` (a dict of
         :class:`~remo3d_tpu_torch.parallel.runtime.ExecutorConfig` field overrides)
         are as in the JAX package. ``profile_dir`` and ``checkpoint`` are not
         ported yet and raise when set.
         """
-        if self.dip_deg != 0:
-            raise NotImplementedError(
-                "dip != 0 needs the 3D dipping-layer solver, which is ROADMAP slice 2"
-            )
         for name, value in (("profile_dir", profile_dir), ("checkpoint", checkpoint)):
             if value is not None:
                 raise NotImplementedError(f"{name} is not ported yet (see ROADMAP)")
         start_time = datetime.datetime.now()
         measurement_depths = np.asarray(measurement_depths, dtype=float)
         if tol is None:
-            tol = 3e-7
+            tol = 3e-7 if np.isclose(self.dip_deg, 0) else 1e-5
 
         domain_radius_alert = False
         for tp in self.tools.values():
@@ -223,10 +291,17 @@ class Model:
                 "results may degrade - consider a larger domain_radius"
             )
 
-        # Both reference mesh generators resolve to the same fixed-topology grid.
+        # Both reference mesh generators resolve to the same fixed-topology
+        # grid; 3D accepts only "gmsh", as the reference does.
         if mesh_generator == "auto":
-            mesh_generator = "netgen"
+            mesh_generator = "netgen" if np.isclose(self.dip_deg, 0) else "gmsh"
+        if not np.isclose(self.dip_deg, 0) and mesh_generator != "gmsh":
+            raise ValueError("The only mesh generator supported in 3D models is gmsh")
         active_window = 0.999 if mesh_generator == "netgen" else 0.99
+
+        if self.dip_deg != 0:
+            # Densify sparse borehole polylines (3D meshing aid).
+            self.borehole_model = mio.add_points_to_borehole(self.borehole_model)
 
         simulation_depths, tasks = plan_tasks(
             self.tools, self.sec, measurement_depths, batch_size
@@ -237,6 +312,18 @@ class Model:
         mud_resistivities = np.interp(
             simulation_depths, self.borehole_model[:, 0], self.borehole_model[:, 2]
         )
+        grid_spec3d, spec_notices = (
+            _resolve_spec3d(
+                self.dip_deg, grid_spec3d, executor_overrides,
+                self.formation_model, self.borehole_model,
+            )
+            if not np.isclose(self.dip_deg, 0)
+            else (grid_spec3d, [])
+        )
+        if verbose:
+            for notice in spec_notices:
+                print(notice)
+        config_kwargs = {} if grid_spec3d is None else {"spec3d": grid_spec3d}
         config = ExecutorConfig(
             spec=grid_spec or GridSpec2D(),
             tol=tol,
@@ -244,6 +331,7 @@ class Model:
             dtype=dtype,
             preconditioner=preconditioner,
             device=device,
+            **config_kwargs,
         )
         if executor_overrides:
             config = dataclasses.replace(config, **executor_overrides)
@@ -260,7 +348,13 @@ class Model:
             active_window,
         )
         results = executor.run(
-            tasks, grids, len(measurement_depths), len(self.tools), verbose=verbose
+            tasks,
+            grids,
+            len(measurement_depths),
+            len(self.tools),
+            # Half-space convention: only the y >= 0 half-ball is modeled in 3D.
+            readout_factor=0.5 if self.dip_deg != 0 else 1.0,
+            verbose=verbose,
         )
 
         logs = {}

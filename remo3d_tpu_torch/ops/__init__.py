@@ -1,9 +1,11 @@
 # -*- coding: utf-8 -*-
-"""Plain-torch numerics: stencil FEM assembly, 9-point apply, PCR line solves,
-the Galerkin multigrid V-cycle and batched preconditioned CG.
+"""Plain-torch numerics: stencil FEM assembly (2D quads, 3D hexes), 9-point
+and 27-point applies, the pole projector, PCR line solves, the Galerkin
+multigrid V-cycle and batched preconditioned CG.
 
-Counterparts of ``remo3d_tpu.ops`` (2D only). The hot 9-point apply goes through
-the hand-written CUDA kernel in :mod:`remo3d_tpu_torch.kernels.stencil2d`.
+Counterparts of ``remo3d_tpu.ops`` (the block-direct solvers are still to come).
+The hot stencil applies go through the hand-written CUDA kernels in
+:mod:`remo3d_tpu_torch.kernels`.
 """
 
 from .assembly2d import assemble_stencil_2d  # noqa: F401

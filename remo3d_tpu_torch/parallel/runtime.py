@@ -1,11 +1,12 @@
 # -*- coding: utf-8 -*-
 """Batched solve executor on one torch device (a CUDA card or the CPU).
 
-Counterpart of ``remo3d_tpu.parallel.runtime`` for the 2D axisymmetric path.
+Counterpart of ``remo3d_tpu.parallel.runtime`` for the 2D axisymmetric path
+(multigrid PCG) and the 3D dipping-layer path (ADI line-preconditioned PCG).
 All batch meshes of a chunk are stacked into fixed-shape tensors and solved
-together (assembly + batched multigrid PCG + axis readout); solves are uniform in
-cost by construction (fixed topology), so chunks are padded with benign lanes
-instead of being scheduled dynamically.
+together (assembly + batched PCG + axis readout); solves are uniform in cost by
+construction (fixed topology), so chunks are padded with benign lanes instead of
+being scheduled dynamically.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.stencil3d import half_planes_3d, stencil3d_apply_half
 from ..meshing.carve import carve_local_model
 from ..meshing.device_mesh import device_mesh_2d
 from ..meshing.grid2d import Grid2DLight, GridSpec2D, build_grid2d, build_grid2d_light
+from ..meshing.grid3d import Grid3D, GridSpec3D, build_grid3d
 from ..ops.assembly2d import (
     apply_dirichlet,
     element_matrices_2d,
@@ -25,9 +28,18 @@ from ..ops.assembly2d import (
     fundamental_potential_2d,
     singularity_rhs_2d,
 )
+from ..ops.assembly3d import (
+    apply_dirichlet_3d,
+    element_matrices_3d,
+    fold_to_stencil_3d,
+    fundamental_potential_3d,
+    singularity_rhs_3d,
+)
 from ..ops.cg import pcg
+from ..ops.lines3d import line_apply3, line_factor3
 from ..ops.multigrid import MGConfig, make_mg_preconditioner, make_stencil_apply
 from ..ops.stencil import stencil_apply
+from ..ops.stencil3d import pole_project, stencil3d_apply
 from ..planner import BatchTask
 from ..utils.timers import PhaseTimers
 
@@ -116,6 +128,114 @@ def _solve_chunk(
     return u[..., 0], info["rel_residual"], info["iterations"]
 
 
+def _assemble3(coords, sigma, free, metric="cartesian"):
+    """Q1 hex assembly -> raw and Dirichlet-eliminated 27-point stencils."""
+    nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
+    C_raw = fold_to_stencil_3d(element_matrices_3d(coords, sigma, metric=metric), nz, np_, nr)
+    return C_raw, apply_dirichlet_3d(C_raw, free)
+
+
+def _apply3(C, use_kernel: bool):
+    """The operator of stencil C: the half-storage wrapper (the CUDA kernel on
+    CUDA tensors) or the full 27-plane apply."""
+    if not use_kernel:
+        return lambda u: stencil3d_apply(C, u)
+    C_half = half_planes_3d(C)
+    return lambda u: stencil3d_apply_half(C_half, u)
+
+
+def _build_rhs3_subtract(coords, sigma, free, src_i, src_fac, apply_raw, metric="cartesian"):
+    """Singularity-subtracted load + boundary lift + axis offset field.
+
+    ``apply_raw`` applies the RAW stencil (the eliminated one has no couplings
+    into the Dirichlet nodes). Returns (rhs, u_axis_offset), where
+    ``u_axis_offset`` is the (g_lift + u_s) part of the solution on the axis.
+    """
+    nz = coords.shape[-4]
+    freeb = free[:, None]
+    sigma0 = sigma[:, 0, 0, 0]  # innermost ring = mud conductivity
+    z_axis = coords[:, :, 0, 0, 2]  # (B, NZ) physical z on the borehole axis
+    B, S = src_i.shape[:2]
+    src_z = torch.gather(z_axis[:, None, :].expand(B, S, nz), 2, src_i)  # (B, S, K)
+    u_s = fundamental_potential_3d(coords, sigma0, src_z, src_fac)
+    rhs = singularity_rhs_3d(coords, sigma, sigma0, src_z, src_fac, metric=metric)
+    g_lift = torch.where(freeb, torch.zeros_like(u_s), -u_s)
+    rhs = rhs - apply_raw(g_lift)
+    rhs = pole_project(torch.where(freeb, rhs, torch.zeros_like(rhs)))
+    return rhs, (g_lift + u_s)[..., :, 0, 0]
+
+
+def _pcg3(C, b, u_axis_offset, apply, *, tol, maxiter, precond="adi", adi_damp=0.6):
+    """Pole-tied line-preconditioned CG + axis readout.
+
+    ``apply`` is the operator (the half-storage kernel wrapper or the full
+    27-plane apply). Preconditioners, with exact factored-PCR line solves:
+
+    * ``"adi"``: damped symmetric multiplicative sweep z-p-r-p-z; the damping
+      keeps the sweep contractive (undamped, modes with rho(T^-1 A) > 2
+      diverge). Each application runs the operator 4 times.
+    * ``"lines"``: additive average of the three line solves.
+    """
+    factors = {d: line_factor3(C, d) for d in ("z", "p", "r")}
+
+    def matvec(p):
+        return pole_project(apply(pole_project(p)))
+
+    if precond == "adi":
+        def M_inv(r):
+            r = pole_project(r)
+            z = adi_damp * pole_project(line_apply3(factors["z"], r))
+            for d in ("p", "r", "p", "z"):
+                res = r - matvec(z)
+                z = z + adi_damp * pole_project(line_apply3(factors[d], res))
+            return z
+    else:
+        def M_inv(r):
+            r = pole_project(r)
+            z = sum(line_apply3(factors[d], r) for d in factors) / 3.0
+            return pole_project(z)
+
+    u, info = pcg(None, b, M_inv=M_inv, tol=tol, maxiter=maxiter, n_grid_axes=3, matvec=matvec)
+    u_axis = u[..., :, :, 0].mean(dim=-1) + u_axis_offset
+    return u_axis, info["rel_residual"], info["iterations"]
+
+
+def _solve_chunk_3d(
+    coords, sigma, free, src_i, src_fac, *, tol, maxiter, subtract=True,
+    precond="adi", adi_damp=0.6, use_kernel=True, metric="cartesian",
+):
+    """3D chunk solve: hex assembly + singularity subtraction + pole-tied line-CG.
+
+    coords (B, NZ, NP, NR, 3), sigma (B, NZ-1, NP-1, NR-1), free (B, NZ, NP, NR),
+    src_i (B, S, MAX_SOURCES) int64, src_fac (B, S, MAX_SOURCES).
+    Returns (u_axis (B, S, NZ), rel_residual (B, S), iterations (int)).
+
+    With ``subtract`` (default) the analytic half-space field
+    ``fac/(2*pi*sigma0*d)`` of every source is removed, so CG solves only for
+    the smooth heterogeneity correction. ``use_kernel`` routes every operator
+    apply (the CG matvec, the ADI sweep and the boundary-lift product) through
+    the half-storage stencil wrapper: the CUDA kernel on CUDA tensors.
+    """
+    nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
+    C_raw, C = _assemble3(coords, sigma, free, metric=metric)
+    if subtract:
+        b, u_axis_offset = _build_rhs3_subtract(
+            coords, sigma, free, src_i, src_fac, _apply3(C_raw, use_kernel), metric=metric
+        )
+    else:
+        # The load lands on the tied axis node: fac/NP on each azimuth copy.
+        B, S = src_i.shape[:2]
+        b_axis = torch.zeros((B, S, nz), dtype=coords.dtype, device=coords.device)
+        b_axis.scatter_add_(-1, src_i, src_fac / np_)
+        b = torch.zeros((B, S, nz, np_, nr), dtype=coords.dtype, device=coords.device)
+        b[..., 0] = b_axis[..., None]
+        u_axis_offset = torch.zeros_like(b_axis)
+    return _pcg3(
+        C, b, u_axis_offset, _apply3(C, use_kernel), tol=tol, maxiter=maxiter,
+        precond=precond, adi_damp=adi_damp,
+    )
+
+
 class LazyGrids:
     """Sequence of per-batch grids, built on first access and cached.
 
@@ -153,21 +273,34 @@ class LazyGrids:
 @dataclasses.dataclass
 class ExecutorConfig:
     spec: GridSpec2D = dataclasses.field(default_factory=GridSpec2D)
+    spec3d: GridSpec3D = dataclasses.field(default_factory=GridSpec3D)
     tol: float = 1e-7
     maxiter: int = 1000
     dtype: str = "float32"
-    # Torch device: "cuda", "cuda:N" or "cpu". None = "cuda" when a card is
-    # visible, else "cpu".
+    # Torch device: "cuda", "cuda:N" or "cpu". None = "cuda"; without a visible
+    # card that raises (there is no silent CPU run: pass "cpu" to ask for one).
     device: str | None = None
     # Batch meshes per chunk. None = auto: 96 on CUDA (a starting value, to be
     # re-screened on the card), 48 on the CPU.
     chunk_size: int | None = None
+    # 3D batch meshes per chunk (each ~160k nodes on the default grid), scaled
+    # down as chunk_size_3d * 5 // S for more than 5 solves per batch.
+    chunk_size_3d: int = 8
     # "auto" (-> "multigrid" on every device), "multigrid", or "local" (point
     # Jacobi). "direct" (block-direct solver) is ROADMAP slice 3.
     preconditioner: str = "auto"
-    # Route the CG matvec and the two finest MG levels through the half-storage
-    # stencil wrapper: the CUDA kernel on CUDA tensors, its plain version on CPU
-    # tensors. False = the full 9-point plain apply everywhere.
+    # 3D: "auto" (-> "adi" on every device), "adi" (damped z-p-r-p-z line
+    # sweep) or "lines" (additive). "direct" (block-direct) is ROADMAP slice 3.
+    precond3d: str = "auto"
+    # 3D assembly metric: "cylindrical" (the hexes are the exact solid of
+    # revolution through the nodes) or "cartesian" (chordal hexes).
+    metric3d: str = "cylindrical"
+    adi_damp: float = 0.6
+    # Route every stencil apply of the solve (2D: the CG matvec and the two
+    # finest MG levels; 3D: the CG matvec, the ADI sweep and the boundary-lift
+    # product) through the half-storage wrappers: the CUDA kernels on CUDA
+    # tensors, their plain versions on CPU tensors. False = the full 9-point
+    # or 27-point plain apply everywhere.
     use_stencil_kernel: bool = True
     # 2D MG smoother: Chebyshev degree of pre/post smoothing, power iterations
     # of the per-batch spectral estimate, PCR truncation (None = exact), and
@@ -195,14 +328,19 @@ class Executor:
         if config.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype {config.dtype!r}: use 'float32' or 'float64'")
         if config.device is None:
-            config = dataclasses.replace(
-                config, device="cuda" if torch.cuda.is_available() else "cpu"
-            )
+            config = dataclasses.replace(config, device="cuda")
         self.device = torch.device(config.device)
         on_cuda = self.device.type == "cuda"
+        if on_cuda and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {config.device!r}: no CUDA card is visible; pass "
+                "device='cpu' to run on the CPU"
+            )
         auto = {}
         if config.preconditioner == "auto":
             auto["preconditioner"] = "multigrid"
+        if config.precond3d == "auto":
+            auto["precond3d"] = "adi"
         if config.chunk_size is None:
             auto["chunk_size"] = 96 if on_cuda else 48
         if config.device_meshing is None:
@@ -212,6 +350,11 @@ class Executor:
             raise NotImplementedError(
                 f"preconditioner {config.preconditioner!r}: the port has "
                 "'multigrid' and 'local'; the block-direct solver is ROADMAP slice 3"
+            )
+        if config.precond3d not in ("adi", "lines"):
+            raise NotImplementedError(
+                f"precond3d {config.precond3d!r}: the port has 'adi' and 'lines'; "
+                "the block-direct 3D solver is ROADMAP slice 3"
             )
 
     # ------------------------------------------------------------------- host side
@@ -226,11 +369,8 @@ class Executor:
         active_geometry_window: float,
     ) -> LazyGrids:
         """Per-batch grid builders, evaluated lazily (the "mesh" phase timer
-        accounts every build, wherever it is triggered)."""
-        if dip_rad != 0:
-            raise NotImplementedError(
-                "dip != 0 (the 3D dipping-layer solver) is ROADMAP slice 2"
-            )
+        accounts every build, wherever it is triggered). A dip builds the 3D
+        grid (numpy), else the 2D one (profiles only with device meshing)."""
 
         def build_one(i: int):
             t = tasks[i]
@@ -247,6 +387,11 @@ class Executor:
                 sources = np.unique(
                     np.concatenate([s.source_positions for s in t.solves])
                 )
+                if dip_rad != 0:
+                    return build_grid3d(
+                        self.config.spec3d, domain_radius, lm, dip_rad,
+                        t.electrode_positions, sources,
+                    )
                 builder = build_grid2d_light if self.config.device_meshing else build_grid2d
                 return builder(
                     self.config.spec, domain_radius, lm, t.electrode_positions, sources
@@ -263,21 +408,25 @@ class Executor:
         grids,
         n_measurements: int,
         n_tools: int,
+        readout_factor: float = 1.0,
         verbose: bool = False,
     ) -> np.ndarray:
         """Execute all batches; returns results[measurement, tool] (NaN on failure).
 
-        With ``verbose`` a progress line is printed per chunk with CG iteration
-        counts and the worst attained residual; chunk statistics are accumulated
-        in ``self.last_report`` either way.
+        ``readout_factor`` is 0.5 for 3D half-space models (the half-ball
+        carries the full current). With ``verbose`` a progress line is printed
+        per chunk with CG iteration counts and the worst attained residual;
+        chunk statistics are accumulated in ``self.last_report`` either way.
         """
         cfg = self.config
         dtype = np.dtype(cfg.dtype).type
         S = max(len(t.solves) for t in tasks)
         B_total = len(tasks)
-        # Bound concurrent solves (B*S): chunk_size is calibrated for the
+        is_3d = isinstance(grids[0], Grid3D)
+        # Bound concurrent solves (B*S): the chunk sizes are calibrated for the
         # default batch_size of 5.
-        chunk = max(1, min(cfg.chunk_size, max(1, cfg.chunk_size * 5 // S), B_total))
+        base = cfg.chunk_size_3d if is_3d else cfg.chunk_size
+        chunk = max(1, min(base, max(1, base * 5 // S), B_total))
 
         results = np.full((n_measurements, n_tools), np.nan)
         g0 = grids[0]
@@ -377,6 +526,17 @@ class Executor:
                     *stage_sources(batch_tasks, batch_grids, B)]
 
         def solve(args):
+            if is_3d:
+                u_axis, rel_res, iters = _solve_chunk_3d(
+                    *args,
+                    tol=cfg.tol,
+                    maxiter=cfg.maxiter,
+                    precond=cfg.precond3d,
+                    adi_damp=cfg.adi_damp,
+                    use_kernel=cfg.use_stencil_kernel,
+                    metric=cfg.metric3d,
+                )
+                return u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
             u_axis, rel_res, iters = _solve_chunk(
                 *args,
                 tol=cfg.tol,
@@ -439,6 +599,7 @@ class Executor:
                                     value = abs(ro.geometric_factor * (pots[1] - pots[0]))
                                 else:
                                     value = abs(ro.geometric_factor * pots[0])
+                                value *= readout_factor
                             results[ro.measurement_index, ro.tool_index] = value
 
             n_real = sum(len(t.solves) for t in batch_tasks)

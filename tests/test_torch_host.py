@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
-"""The port's numpy host layer (tools, io, planner, carve, grid2d) is a copy of
-the JAX package's: same inputs, bit-equal outputs."""
+"""The port's numpy host layer (tools, io, planner, carve, grid2d, grid3d) is a
+copy of the JAX package's: same inputs, bit-equal outputs."""
 
 import dataclasses
 
@@ -10,11 +10,13 @@ import pytest
 import remo3d_tpu.io as jio
 import remo3d_tpu.meshing.carve as jcarve
 import remo3d_tpu.meshing.grid2d as jgrid
+import remo3d_tpu.meshing.grid3d as jgrid3
 import remo3d_tpu.planner as jplanner
 import remo3d_tpu.tools as jtools
 import remo3d_tpu_torch.io as tio
 import remo3d_tpu_torch.meshing.carve as tcarve
 import remo3d_tpu_torch.meshing.grid2d as tgrid
+import remo3d_tpu_torch.meshing.grid3d as tgrid3
 import remo3d_tpu_torch.planner as tplanner
 import remo3d_tpu_torch.tools as ttools
 
@@ -114,3 +116,32 @@ def test_io_carve_grid2d_bit_equal(name):
         tl = tgrid.build_grid2d_light(tspec, 50.0, tlm, electrodes, sources)
         assert jl.content_bytes() == tl.content_bytes()
         assert jl.grid_shape == tl.grid_shape
+
+
+@pytest.mark.parametrize("dip_deg", [30, 60])
+@pytest.mark.parametrize("preset", ["default", "fast"])
+def test_grid3d_bit_equal(preset, dip_deg):
+    """build_grid3d (coords, conductivities, free mask and the region outputs)
+    over an invaded formation with a varying caliper, at the default and fast
+    specs; the presets and the threshold constant agree too."""
+    formation, borehole = FORMATIONS["bm2_like_caliper"]
+    tf = tio.set_formation_parameters(formation)
+    tb = tio.add_points_to_borehole(tio.set_borehole_parameters(borehole, "radius"))
+    jspec = jgrid3.GridSpec3D() if preset == "default" else jgrid3.GridSpec3D.fast()
+    tspec = tgrid3.GridSpec3D() if preset == "default" else tgrid3.GridSpec3D.fast()
+    assert dataclasses.astuple(jspec) == dataclasses.astuple(tspec)
+    for name in ("accurate", "high_dip"):
+        assert dataclasses.astuple(getattr(jgrid3.GridSpec3D, name)()) == dataclasses.astuple(
+            getattr(tgrid3.GridSpec3D, name)())
+    assert jgrid3.THIN_ANNULUS_MIN_CELLS == tgrid3.THIN_ANNULUS_MIN_CELLS
+    dip = np.deg2rad(dip_deg)
+    electrodes = np.array([4.0, 5.0, 5.5, 7.0])
+    sources = np.array([5.0])
+    lm = tcarve.carve_local_model(tf, tb[:, :2], 1.0, 5.2, 50.0, dip_rad=dip,
+                                  active_geometry_window=0.99)
+    jg = jgrid3.build_grid3d(jspec, 50.0, lm, dip, electrodes, sources, with_regions=True)
+    tg = tgrid3.build_grid3d(tspec, 50.0, lm, dip, electrodes, sources, with_regions=True)
+    for field in ("z_axis", "coords", "sigma_cells", "free_mask", "region_uz_weights",
+                  "region_fz_layer", "region_fixed"):
+        _assert_same(getattr(jg, field), getattr(tg, field), f"{preset}@{dip_deg}.{field}")
+    assert jg.axis_node_index(5.5) == tg.axis_node_index(5.5)

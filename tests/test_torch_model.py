@@ -84,10 +84,29 @@ def test_unported_options_raise():
     m = remo3d_tpu_torch.Model(["A2.0M0.5N"])
     m.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius", dip=30)
     m.initialize_workers()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        m.simulate_logs(DEPTHS, device="cpu", verbose=False)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        m.simulate_logs(DEPTHS, device="cpu", verbose=False,
+                        executor_overrides={"precond3d": "direct"})
     m.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
     for kwargs in ({"checkpoint": "x.npz"}, {"profile_dir": "trace"},
                    {"executor_overrides": {"preconditioner": "direct"}}):
         with pytest.raises(NotImplementedError):
             m.simulate_logs(DEPTHS, device="cpu", verbose=False, **kwargs)
+
+
+def test_device_default_needs_a_card(monkeypatch):
+    """device=None means "cuda": without a visible card the executor raises
+    and says how to ask for the CPU; it never runs on the CPU by itself."""
+    from remo3d_tpu_torch.parallel.runtime import Executor, ExecutorConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for config in (ExecutorConfig(), ExecutorConfig(device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Executor(config)
+    ex = Executor(ExecutorConfig(device="cpu"))
+    assert ex.device == torch.device("cpu") and ex.config.precond3d == "adi"
+    m = remo3d_tpu_torch.Model(["A2.0M0.5N"])
+    m.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
+    m.initialize_workers()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        m.simulate_logs(DEPTHS, verbose=False)
