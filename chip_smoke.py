@@ -7,18 +7,24 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
 (non-zero exit, no result line) when any of them is missing or any phase fails:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: nvcc builds the kernel library from ``remo3d_tpu_torch/csrc``;
+2. build: nvcc builds the kernel library from ``remo3d_tpu_torch/csrc``; per
+   kernel and shape, the registers, shared memory, tile height and resident
+   blocks per SM that the CUDA runtime reports;
 3. kernel K1 (``stencil2d_half``) against its plain torch version on the card,
-   float32 and float64, at the 2D path's two multigrid shapes and an edge case,
-   then both timed with CUDA events beside the bound and a CSR sparse product;
+   float32 and float64, at the 2D path's two multigrid shapes, an edge case
+   and a ragged shape (NZ no multiple of the tile height, NR no multiple of
+   4), then both timed with CUDA events beside the bound and a CSR sparse
+   product;
 4. the 2D main path at full width: ``Model.compute_synthetic_logs`` on
    ``cuda``, 6 tools x 101 depths on the default 761x161 grid, with the kernels'
    launch counts read around the run; then the same log with the kernels off;
 5. 2D cross-check: 3 depths on the card and on the CPU (plain versions) agree;
 6. 2D physics: in a uniform medium every tool reads the true resistivity;
 7. kernel K2 (``stencil3d_half``) against its plain version, float32 and
-   float64, at the 3D path's chunk shape, the ``high_dip`` grid and an edge
-   case, then timed like K1;
+   float64, with the pole tie off and on (on: also against the kernel between
+   two ``pole_project`` calls), at the 3D path's chunk shape, the ``high_dip``
+   grid, an edge case, a ragged shape and one lower than a tile, then timed
+   like K1;
 8. the 3D main path at full width: the 100-point Benchmark-model-3 log at dip
    30 on the default 193x17x49 grid, with the launch counts read around it;
 9. the first 20 depths of that log again with the kernels off;
@@ -31,6 +37,12 @@ is ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
 one warm phase-8 log with torch.profiler: kernel time by part and the device
 busy share (the union of kernel intervals over the wall).
+``python3 chip_smoke.py --tune`` instead times both kernels at their main
+shapes for every tile height, to choose the kernels' automatic one.
+``python3 chip_smoke.py --probe`` instead times K2 beside its probe builds
+(``REMO3D_K2_PROBE`` in ``csrc/stencil3d.cu``: without the mirrored coefficient
+loads, without any coefficient load, without the sum over shared memory), to
+say what its time is spent on.
 """
 
 from __future__ import annotations
@@ -63,7 +75,7 @@ FORMATION = np.array(
 )
 BOREHOLE = np.array([[-100.0, 0.1, 1.0], [200.0, 0.1, 1.0]])
 DEPTHS = np.arange(0.0, 10.01, 0.1)
-KERNEL_SHAPES = [(96, 5, 761, 161), (96, 5, 381, 81), (1, 2, 7, 5)]
+KERNEL_SHAPES = [(96, 5, 761, 161), (96, 5, 381, 81), (1, 2, 7, 5), (2, 3, 37, 23)]
 # Benchmark model 3 (benchmarks/bm3_oracle.py): 10 | 100 | 10 ohm-m, beds
 # crossing the borehole axis at 10.77 and 14.23 m; 0.1 m borehole, 1 ohm-m mud.
 BM3_FORMATION = np.array(
@@ -77,10 +89,15 @@ BM3_BOREHOLE = np.array([[-100.0, 0.1, 1.0], [200.0, 0.1, 1.0]])
 TOOLS_3D = ["A2.0M0.5N"]
 DEPTHS_3D = np.arange(5.0, 29.76, 0.25)  # 100 measurement points
 DIP = 30
-KERNEL3D_SHAPES = [(8, 5, 193, 17, 49), (2, 5, 257, 25, 65), (1, 2, 6, 3, 5)]
+KERNEL3D_SHAPES = [
+    (8, 5, 193, 17, 49), (2, 5, 257, 25, 65), (1, 2, 6, 3, 5), (2, 3, 11, 5, 7), (1, 2, 3, 3, 5),
+]
 # The kernels vs their plain versions, relative to max|y|: one summation order,
 # but the kernels contract multiply-adds into FMAs.
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}
+# K2 with the pole tie against K2 between two pole_project calls: the same
+# arithmetic but for the order of the mean over the NP azimuth copies.
+TOL_POLE = {"float32": 1e-6, "float64": 1e-13}
 # The CSR sparse product (cuSPARSE) sums in its own order.
 TOL_LIBRARY = 1e-4
 # One float32 log at tol 3e-7 sits within 2.2e-4 of its float64 solve (README,
@@ -224,15 +241,18 @@ def stencil_csr(torch, C_flat, offsets):
         return A.coalesce().to_sparse_csr()
 
 
-def check_and_time(torch, label, shapes, make, plain_fn, kernel_fn, half_fn, n_half, flops_per_out):
+def check_and_time(torch, label, shapes, make, plain_fn, kernel_fn, half_fn, n_half, flops_per_out,
+                   also=None):
     """Phases 3 and 7: a kernel against its plain version at every shape, f32
     and f64; at the first (main-path) shape also timed against its plain
     version and a CSR sparse product, 25 interleaved calls each.
 
     ``make(rng, shape)`` -> (full-storage C flattened to (B, *grid, E), the
     offsets of its E entries, full C as the half-plane builder takes it).
-    Returns {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-    "library_ms"} at the main shape, float32."""
+    ``also(C_half, u, name, shape)``, if given, makes further checks at every
+    shape and type and returns {key: fn} of further calls to time at the main
+    shape. Returns {"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+    "library_ms", *keys} at the main shape, float32."""
     rng = np.random.default_rng(2024)
     out = {}
     for shape in shapes:
@@ -254,6 +274,7 @@ def check_and_time(torch, label, shapes, make, plain_fn, kernel_fn, half_fn, n_h
             )
             if not rel <= TOL_REL[name]:
                 raise AssertionError(f"{label} {name} {shape}: rel err {rel:.3e} > {TOL_REL[name]}")
+            more = also(C_half, u, name, shape) if also else {}
             if name == "float32" and shape == shapes[0]:
                 A = stencil_csr(torch, torch.as_tensor(C_flat64, device="cuda").to(dt), offsets)
                 U = u.reshape(B, S, n_nodes).transpose(1, 2).reshape(B * n_nodes, S).contiguous()
@@ -266,11 +287,16 @@ def check_and_time(torch, label, shapes, make, plain_fn, kernel_fn, half_fn, n_h
                     kernel_fn(C_half, u)
                     plain_fn(C_half, u)
                     torch.sparse.mm(A, U)
+                    for fn in more.values():
+                        fn()
                 k_ms, p_ms, l_ms = [], [], []
-                for _ in range(25):  # interleaved: plain, kernel, library
+                more_ms = {key: [] for key in more}
+                for _ in range(25):  # interleaved: plain, kernel, library, the further calls
                     p_ms.append(time_ms(torch, lambda: plain_fn(C_half, u)))
                     k_ms.append(time_ms(torch, lambda: kernel_fn(C_half, u)))
                     l_ms.append(time_ms(torch, lambda: torch.sparse.mm(A, U)))
+                    for key, fn in more.items():
+                        more_ms[key].append(time_ms(torch, fn))
                 k, p, lib = (float(np.median(v)) for v in (k_ms, p_ms, l_ms))
                 n_bytes = 4.0 * n_nodes * B * (n_half + 2 * S)
                 b_ms, b_by = bound_ms(n_bytes, flops_per_out * n_nodes * B * S, name)
@@ -282,8 +308,12 @@ def check_and_time(torch, label, shapes, make, plain_fn, kernel_fn, half_fn, n_h
                 )
                 out = {"max_abs_err": err, "ms": k, "plain_ms": p, "bound_ms": b_ms,
                        "bound_by": b_by, "library_ms": lib}
+                for key, v in more_ms.items():
+                    out[key] = float(np.median(v))
+                    log(f"{label} float32 {shape}: {key} {out[key]:.4f} ms (median of 25), "
+                        f"{out[key] / k - 1:+.1%} on the kernel")
                 del A, U, y_l
-            del C_half, u, y_k, y_p
+            del C_half, u, y_k, y_p, more
     torch.cuda.empty_cache()
     return out
 
@@ -307,6 +337,7 @@ def check_k1(torch):
 def check_k2(torch):
     """Phase 7: K2 against its plain version, then timed at the chunk shape."""
     from remo3d_tpu_torch.kernels import stencil3d
+    from remo3d_tpu_torch.ops.stencil3d import pole_project
 
     def make(rng, shape):
         B, _, nz, np_, nr = shape
@@ -314,10 +345,100 @@ def check_k2(torch):
         offsets = [(dz, dp, dr) for dz in (-1, 0, 1) for dp in (-1, 0, 1) for dr in (-1, 0, 1)]
         return C, offsets, C
 
+    def with_pole(C_half, u, name, shape):
+        """K2 with the pole tie: against its plain version and against the
+        kernel between two pole_project calls; u must come out untouched."""
+        u_before = u.clone()
+        y_k = stencil3d.stencil3d_apply_half(C_half, u, pole=True)
+        y_p = stencil3d.stencil3d_apply_half_plain(C_half, u, pole=True)
+        y_c = pole_project(stencil3d.stencil3d_apply_half(C_half, pole_project(u)))
+        torch.cuda.synchronize()
+        scale = float(y_p.abs().max())
+        rel_p = float((y_k - y_p).abs().max()) / scale
+        rel_c = float((y_k - y_c).abs().max()) / scale
+        log(
+            f"K2 {name} {shape} pole tie: kernel vs plain {rel_p:.3e} (tolerance "
+            f"{TOL_REL[name]:g}), vs pole_project(kernel(pole_project(u))) {rel_c:.3e} "
+            f"(tolerance {TOL_POLE[name]:g}), relative to max|y|"
+        )
+        if not (rel_p <= TOL_REL[name] and rel_c <= TOL_POLE[name]):
+            raise AssertionError(f"K2 {name} {shape} pole tie: {rel_p:.3e}, {rel_c:.3e}")
+        if not torch.equal(u, u_before):
+            raise AssertionError(f"K2 {name} {shape}: the pole tie modified u")
+        return {
+            "pole_ms": lambda: stencil3d.stencil3d_apply_half(C_half, u, pole=True),
+            "pole_unfused_ms": lambda: pole_project(
+                stencil3d.stencil3d_apply_half(C_half, pole_project(u))),
+        }
+
     return check_and_time(
         torch, "K2", KERNEL3D_SHAPES, make, stencil3d.stencil3d_apply_half_plain,
-        stencil3d.stencil3d_apply_half, stencil3d.half_planes_3d, 14, 54,
+        stencil3d.stencil3d_apply_half, stencil3d.half_planes_3d, 14, 54, also=with_pole,
     )
+
+
+def report_kernel_info(torch):
+    """Phase 2: what the built kernels use at the paths' shapes."""
+    from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+
+    rows = {}
+    for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+        for shape in KERNEL_SHAPES[:2]:
+            rows[f"K1 {name} S={shape[1]} NR={shape[3]}"] = stencil2d.kernel_info(
+                shape[1], shape[3], dt)
+        for shape in KERNEL3D_SHAPES[:2]:
+            rows[f"K2 {name} S={shape[1]} NPxNR={shape[3]}x{shape[4]}"] = stencil3d.kernel_info(
+                shape[1], shape[3], shape[4], dt)
+    for key, info in rows.items():
+        log(
+            f"{key}: {info['registers']} registers, {info['spill_bytes']} B spilled, "
+            f"{info['smem_bytes']} B shared memory per block, TZ = {info['tile_rows']}, "
+            f"{info['solves_per_group']} solves per group, {info['blocks_per_sm']} blocks of 256 "
+            f"threads resident per SM"
+        )
+        if info["blocks_per_sm"] < 1:
+            raise AssertionError(f"{key}: no block fits an SM")
+    return rows
+
+
+def tune(torch, card):
+    """Both kernels at their main shapes, float32, for every tile height: 15
+    interleaved rounds over the heights, median per height."""
+    from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+
+    rng = np.random.default_rng(2024)
+    sweeps = (
+        ("K1", stencil2d, KERNEL_SHAPES[0], (4, 8, 12, 16, 20, 24, 32, 40),
+         lambda B, *g: random_symmetric_stencil_2d(rng, B, *g), stencil2d.half_planes_2d,
+         {"": lambda C, u, tz: stencil2d.stencil_apply_half_2d(C, u, tile_rows=tz)}),
+        ("K2", stencil3d, KERNEL3D_SHAPES[0], (1, 2, 3, 4, 5, 6, 8),
+         lambda B, *g: random_symmetric_stencil_3d(rng, B, *g), stencil3d.half_planes_3d,
+         {"": lambda C, u, tz: stencil3d.stencil3d_apply_half(C, u, tile_rows=tz),
+          " pole": lambda C, u, tz: stencil3d.stencil3d_apply_half(C, u, pole=True,
+                                                                    tile_rows=tz)}),
+    )
+    for label, mod, shape, heights, make, half_fn, fns in sweeps:
+        B, S = shape[:2]
+        C_half = half_fn(torch.as_tensor(make(B, *shape[2:]), device="cuda").float())
+        u = torch.as_tensor(rng.standard_normal(shape), device="cuda").float()
+        times = {(tz, key): [] for tz in (0, *heights) for key in fns}
+        for rnd in range(16):  # round 0 warms up
+            for tz in (0, *heights):
+                for key, fn in fns.items():
+                    t = time_ms(torch, lambda: fn(C_half, u, tz))
+                    if rnd:
+                        times[(tz, key)].append(t)
+        for tz in (0, *heights):
+            info = mod.kernel_info(S, *shape[3:], tile_rows=tz)
+            log(
+                f"tune {label} {shape} on {card}: TZ {'auto' if tz == 0 else tz} "
+                f"(runs with {info['tile_rows']}, {info['smem_bytes']} B, "
+                f"{info['blocks_per_sm']} blocks/SM): "
+                + ", ".join(f"kernel{key} {float(np.median(times[(tz, key)])):.4f} ms"
+                            for key in fns)
+            )
+        del C_half, u
+        torch.cuda.empty_cache()
 
 
 def reset_counts():
@@ -536,6 +657,44 @@ def run_3d(torch, card):
     return launches
 
 
+def probe(torch, card):
+    """K2 at its main shape, float32, beside its three probe builds: 20
+    interleaved rounds, median per build. The probe builds compute wrong
+    results on purpose; only their times mean something."""
+    from remo3d_tpu_torch.kernels import build, stencil3d
+
+    builds = {
+        "the kernel": (),
+        "probe 1, mirrored coefficients not loaded": ("REMO3D_K2_PROBE=1",),
+        "probe 2, no coefficient loaded": ("REMO3D_K2_PROBE=2",),
+        "probe 3, no sum over shared memory": ("REMO3D_K2_PROBE=3",),
+    }
+    libs = {key: build.build_library(defines) for key, defines in builds.items()}
+    shape = KERNEL3D_SHAPES[0]
+    B, S, nz, np_, nr = shape
+    rng = np.random.default_rng(2024)
+    C_half = stencil3d.half_planes_3d(torch.as_tensor(
+        random_symmetric_stencil_3d(rng, B, nz, np_, nr), device="cuda").float())
+    u = torch.as_tensor(rng.standard_normal(shape), device="cuda").float()
+    y = torch.empty_like(u)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        err = lib.stencil3d_half_f32(C_half.data_ptr(), u.data_ptr(), y.data_ptr(), B, S, nz,
+                                     np_, nr, 0, 0, stream)
+        if err != 0:
+            raise RuntimeError(f"probe launch failed: CUDA error {err}")
+
+    times = {key: [] for key in libs}
+    for rnd in range(21):  # round 0 warms up
+        for key, lib in libs.items():
+            t = time_ms(torch, lambda: call(lib))
+            if rnd:
+                times[key].append(t)
+    for key in libs:
+        log(f"probe K2 {shape} float32 on {card}: {key}: {float(np.median(times[key])):.4f} ms")
+
+
 def profile_3d(torch, card):
     """One warm phase-8 log under torch.profiler: kernel time of K2, of the
     PCR line apply, of the pole projection and of the rest, and the device
@@ -588,8 +747,11 @@ def profile_3d(torch, card):
     }
     rest = total - k2 - sum(ranges.values())
     iters = [c["iterations"] for c in model.last_report["chunks"]]
+    n_pole = sum(1 for e in events
+                 if e.name == "pole_project" and e.device_type == torch.autograd.DeviceType.CPU)
     log(f"profile on {card}: 3D log wall {wall_ms:.1f} ms, CG iterations {iters}, "
-        f"{len(kernels)} kernels")
+        f"{len(kernels)} kernels; {n_pole} pole_project calls = {n_pole / sum(iters):.2f} per "
+        f"CG iteration")
     log(f"profile: kernel time {total:.1f} ms; busy (union of kernel intervals) {busy:.1f} ms = "
         f"{busy / wall_ms:.3f} of the wall")
     for name, ms in (("K2 stencil3d_half", k2), ("PCR line apply", ranges["pcr_apply"]),
@@ -624,9 +786,20 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load_library()
     log(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
+    if build.build_log_path().exists():
+        for line in build.build_log_path().read_text().splitlines():
+            if "Compiling entry function" in line or "Used" in line or "spill" in line:
+                log("ptxas: " + line.strip())
+    info = report_kernel_info(torch)
 
     if sys.argv[1:] == ["--profile3d"]:
         profile_3d(torch, card)
+        return 0
+    if sys.argv[1:] == ["--tune"]:
+        tune(torch, card)
+        return 0
+    if sys.argv[1:] == ["--probe"]:
+        probe(torch, card)
         return 0
     if sys.argv[1:]:
         raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -639,6 +812,11 @@ def main() -> int:
     k2["launches"] = run_3d(torch, card)  # 8-11
     log(f"3D phases done at {time.perf_counter() - t_start:.1f} s")
 
+    main_info = {
+        "stencil2d_half": info["K1 float32 S=5 NR=161"],
+        "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"],
+    }
+    log("kernel resources at the main shapes: " + json.dumps(main_info))
     log(card)
     print(json.dumps({"kernels": [
         {

@@ -19,114 +19,196 @@
 // read and y written once per solve, about 4*N*B*(5 + 2S) bytes per apply for
 // N = NZ*NR in float32 (twice that in float64).
 //
-// Design: one block per (batch, z-tile of TZ rows). It stages the tile's 5
-// coefficient rows plus one halo row above (the mirrored terms of the dz = 1
-// offsets read C_d at row z-1) in shared memory once, then loops over the S
-// solves of the batch. So the coefficients are read from device memory once per
-// batch rather than S times, the Hopper analogue of the Pallas grid whose
-// coefficient block stays resident across the inner solve axis. u is read
-// through the read-only cache; its three rows per output row are reused from
-// L1/L2. There is no lane padding and no roll: each thread masks its own edges.
+// Design (the 2D case of stencil3d.cu's). A block owns a tile of TZ whole rows
+// of one batch. Rows are contiguous, so the u it needs for one solve (rows
+// z0-1 .. z0+TZ) is one contiguous run; the block stages that run for ALL S
+// solves of the batch in shared memory with cp.async (slab_stage.cuh says how
+// the unaligned start is handled), zero-filling the halo row that lies outside
+// the grid and a small margin around the tile. Then each thread walks over the
+// tile's nodes, 256 apart: it loads the node's 9 coefficients (the diagonal,
+// C_d(n) and the mirrored C_d(n-d), zero where the neighbour is outside the
+// grid) into registers once and loops over the S solves, reading the 9 values
+// of u from shared memory. The coefficient planes leave device memory once per
+// batch (the mirrored ones are the neighbours' own values, in L1), u once per
+// tile that needs it ((TZ+2)/TZ times, the halo rows from L2); the node loop
+// divides nothing and has no barrier and no mask. Copy and arithmetic overlap
+// across the blocks that share an SM. Where S tiles do not fit in 227 KB the
+// solves are taken in groups of G < S.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, at
+// (B, S, NZ, NR) = (96, 5, 761, 161) in float32 (chip_smoke.py --tune): 64
+// registers, no spill, TZ = 12 with 45,360 B of shared memory and four resident
+// blocks per SM, 0.292 ms per apply against a bound of 0.211 ms.
+//
+// The masked terms multiply a zero coefficient with whatever finite value the
+// tile holds at that offset, so a solve whose u holds Inf or NaN comes out NaN
+// where the plain version would keep some nodes finite. Solves never mix.
 
 #include <cuda_runtime.h>
+
+#include "slab_stage.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTileRows = 8;
-// Leave headroom under the 227 KB a block may opt into.
-constexpr size_t kMaxSmemBytes = 200 * 1024;
+// Automatic tile height: the largest TZ up to kAutoMaxTZ whose shared memory
+// stays below kAutoSmemBytes, so that four blocks share an SM. Measured at
+// (96, 5, 761, 161) float32 on an H100 (chip_smoke.py --tune): TZ = 8 and 12
+// with four resident blocks are the fastest, 16-20 (three blocks) 5% slower,
+// 24-32 (two blocks) 20% slower.
+constexpr int kAutoMaxTZ = 12;
+constexpr size_t kAutoSmemBytes = 55 * 1024;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 stencil2d_half_kernel(const T* __restrict__ C, const T* __restrict__ u,
-                      T* __restrict__ y, int S, int NZ, int NR, int TZ) {
-  extern __shared__ unsigned char smem_raw[];
-  T* cs = reinterpret_cast<T*>(smem_raw);  // [5][TZ + 1][NR], row 0 = halo z0-1
+                      T* __restrict__ y, int S, int NZ, int NR, int TZ, int G, int stride) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ubuf = reinterpret_cast<T*>(smem_raw);  // [G][stride]: rows z0-1 .. z0+TZ per solve
 
+  const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int z0 = blockIdx.x * TZ;
+  const int N = NZ * NR;
   const int rows = min(TZ, NZ - z0);
-  const long long plane = static_cast<long long>(NZ) * NR;
-  const T* Cb = C + static_cast<long long>(b) * 5 * plane;
+  // Staged rows lz = 0 .. TZ+1 stand for z = z0-1+lz; those inside the grid:
+  const int lz_lo = z0 == 0 ? 1 : 0;
+  const int lz_hi = min(TZ + 1, NZ - z0);
+  // A corner node reads one element beyond its rows.
+  const int margin = slab::margin_elems<T>(1);
+  const T* Cb = C + static_cast<long long>(b) * 5 * N;
+  // Element offset of row lz = 0 of solve 0 of this batch, modulo 2^32.
+  const unsigned int first0 = static_cast<unsigned int>(b * S) * static_cast<unsigned int>(N) +
+                              static_cast<unsigned int>((z0 - 1) * NR);
 
-  // Stage coefficient rows z0-1 .. z0+rows-1 (halo row is zero above the grid).
-  const int tile = (rows + 1) * NR;
-  for (int k = 0; k < 5; ++k) {
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      const int lz = i / NR;
-      const int r = i - lz * NR;
-      const int z = z0 - 1 + lz;
-      cs[(k * (TZ + 1) + lz) * NR + r] =
-          (z >= 0) ? __ldg(Cb + k * plane + static_cast<long long>(z) * NR + r) : T(0);
-    }
-  }
-  __syncthreads();
+  // Steps of the node loop, so that it divides nothing.
+  const int dq = kThreads / NR;
+  const int dm = kThreads - dq * NR;
 
   const int dzs[4] = {0, 1, 1, 1};
   const int drs[4] = {1, -1, 0, 1};
-  const int outs = rows * NR;
-  for (int s = 0; s < S; ++s) {
-    const long long base = (static_cast<long long>(b) * S + s) * plane;
-    const T* us = u + base;
-    T* ys = y + base;
-    for (int i = threadIdx.x; i < outs; i += blockDim.x) {
-      const int lz = i / NR;
-      const int r = i - lz * NR;
+
+  for (int s0 = 0; s0 < S; s0 += G) {
+    const int Gc = min(G, S - s0);
+    if (s0 > 0) __syncthreads();  // the previous group's buffers are read no more
+
+    for (int g = 0; g < Gc; ++g) {
+      const unsigned int first = first0 + static_cast<unsigned int>(s0 + g) * N;
+      T* buf = ubuf + g * stride;
+      T* ub = buf + margin + slab::shift(u, first);  // row lz = 0
+      const T* src = u + (static_cast<long long>(b) * S + s0 + g) * N +
+                     static_cast<long long>(z0 - 1) * NR;
+      T* filled_end = ub + (lz_hi + 1) * NR;
+      slab::zero_run(buf, static_cast<int>(ub + lz_lo * NR - buf), tid, kThreads);
+      slab::zero_run(filled_end, static_cast<int>(buf + stride - filled_end), tid, kThreads);
+      slab::stage_run(ub + lz_lo * NR, src + lz_lo * NR, (lz_hi - lz_lo + 1) * NR, tid,
+                      kThreads);
+    }
+    slab::cp_async_commit();
+    slab::cp_async_wait_group<0>();
+    __syncthreads();
+
+    int lz = tid / NR;
+    int r = tid - lz * NR;
+    while (lz < rows) {
       const int z = z0 + lz;
-      T acc = cs[(lz + 1) * NR + r] * __ldg(us + static_cast<long long>(z) * NR + r);
+      const int n = z * NR + r;
+      const T c0 = __ldg(Cb + n);
+      T cp[4];
+      T cm[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int dz = dzs[k];
-        const int dr = drs[k];
-        const T* ck = cs + (k + 1) * (TZ + 1) * NR;
-        // Direct coupling: C_d(n) u(n+d).
-        const int zp = z + dz, rp = r + dr;
-        if (zp < NZ && rp >= 0 && rp < NR) {
-          acc += ck[(lz + 1) * NR + r] * __ldg(us + static_cast<long long>(zp) * NR + rp);
-        }
-        // Mirrored coupling: C_d(n-d) u(n-d).
-        const int zm = z - dz, rm = r - dr;
-        if (zm >= 0 && rm >= 0 && rm < NR) {
-          acc += ck[(lz + 1 - dz) * NR + rm] * __ldg(us + static_cast<long long>(zm) * NR + rm);
-        }
+        const int dz = dzs[k], dr = drs[k];
+        const int off = dz * NR + dr;
+        const T* ck = Cb + static_cast<long long>(k + 1) * N;
+        const bool up = (z + dz < NZ) && (r + dr >= 0) && (r + dr < NR);
+        const bool dn = (z - dz >= 0) && (r - dr >= 0) && (r - dr < NR);
+        cp[k] = up ? __ldg(ck + n) : T(0);
+        cm[k] = dn ? __ldg(ck + n - off) : T(0);
       }
-      ys[static_cast<long long>(z) * NR + r] = acc;
+
+      for (int g = 0; g < Gc; ++g) {
+        const unsigned int first = first0 + static_cast<unsigned int>(s0 + g) * N;
+        const T* un =
+            ubuf + g * stride + margin + slab::shift(u, first) + (lz + 1) * NR + r;
+        T acc = c0 * un[0];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int off = dzs[k] * NR + drs[k];
+          acc += cp[k] * un[off];
+          acc += cm[k] * un[-off];
+        }
+        y[(static_cast<long long>(b) * S + s0 + g) * N + n] = acc;
+      }
+
+      lz += dq;
+      r += dm;
+      if (r >= NR) { r -= NR; ++lz; }
     }
   }
 }
 
 template <typename T>
+int stride_of(int tz, int NR) {
+  return slab::buffer_stride<T>(tz, NR, slab::margin_elems<T>(1));
+}
+
+// false if one solve's three rows do not fit in a block's shared memory.
+template <typename T>
+bool choose_tile(int S, int NR, int tile_rows, slab::Tile& t) {
+  auto bytes = [=](int tz, int g) {
+    return sizeof(T) * static_cast<size_t>(g) * stride_of<T>(tz, NR);
+  };
+  return slab::choose_tile(S, tile_rows, kAutoMaxTZ, kAutoSmemBytes, bytes, t);
+}
+
+template <typename T>
 int launch(const void* C, const void* u, void* y, int B, int S, int NZ, int NR,
-           void* stream) {
-  if (B <= 0 || S <= 0 || NZ <= 0 || NR <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int TZ = kMaxTileRows < NZ ? kMaxTileRows : NZ;
-  size_t smem = sizeof(T) * 5 * static_cast<size_t>(TZ + 1) * NR;
-  while (smem > kMaxSmemBytes && TZ > 1) {
-    --TZ;
-    smem = sizeof(T) * 5 * static_cast<size_t>(TZ + 1) * NR;
+           int tile_rows, void* stream) {
+  if (B <= 0 || S <= 0 || NZ <= 0 || NR <= 0 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stencil2d_half_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long long>(NZ) * NR >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid((NZ + TZ - 1) / TZ, B);
-  stencil2d_half_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(C), static_cast<const T*>(u), static_cast<T*>(y), S, NZ, NR, TZ);
+  slab::Tile t;
+  if (!choose_tile<T>(S, NR, tile_rows, t)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = slab::allow_smem(stencil2d_half_kernel<T>, t.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((NZ + t.TZ - 1) / t.TZ, B);
+  stencil2d_half_kernel<T><<<grid, kThreads, t.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(C), static_cast<const T*>(u), static_cast<T*>(y), S, NZ, NR, t.TZ,
+      t.G, stride_of<T>(t.TZ, NR));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int info(int S, int NR, int tile_rows, int* out) {
+  slab::Tile t;
+  if (S <= 0 || NR <= 0 || !choose_tile<T>(S, NR, tile_rows, t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return slab::kernel_info(stencil2d_half_kernel<T>, kThreads, t, out);
 }
 
 }  // namespace
 
 extern "C" int stencil2d_half_f32(const void* C, const void* u, void* y, int B, int S,
-                                  int NZ, int NR, void* stream) {
-  return launch<float>(C, u, y, B, S, NZ, NR, stream);
+                                  int NZ, int NR, int tile_rows, void* stream) {
+  return launch<float>(C, u, y, B, S, NZ, NR, tile_rows, stream);
 }
 
 extern "C" int stencil2d_half_f64(const void* C, const void* u, void* y, int B, int S,
-                                  int NZ, int NR, void* stream) {
-  return launch<double>(C, u, y, B, S, NZ, NR, stream);
+                                  int NZ, int NR, int tile_rows, void* stream) {
+  return launch<double>(C, u, y, B, S, NZ, NR, tile_rows, stream);
+}
+
+// What a launch with S solves on rows of NR nodes and this tile_rows would use
+// (slab::kernel_info).
+extern "C" int stencil2d_half_info_f32(int S, int NR, int tile_rows, int* out) {
+  return info<float>(S, NR, tile_rows, out);
+}
+
+extern "C" int stencil2d_half_info_f64(int S, int NR, int tile_rows, int* out) {
+  return info<double>(S, NR, tile_rows, out);
 }

@@ -9,8 +9,9 @@ offset plane serves two couplings:
 
     y(n) = C0(n) u(n) + sum_d [ C_d(n) u(n+d) + C_d(n-d) u(n-d) ]
 
-with zero fill at every grid edge. The kernel (``csrc/stencil2d.cu``) reads a
-batch's 5 planes once for all of its S solves.
+with zero fill at every grid edge. The kernel (``csrc/stencil2d.cu``) gives a
+block a tile of whole rows, stages the u of all S solves of that tile in shared
+memory and keeps a node's 9 coefficients in registers across the S solves.
 
 :func:`stencil_apply_half_2d` sends a tensor that lies on the CPU to
 :func:`stencil_apply_half_2d_plain`; any other tensor launches the kernel or
@@ -30,6 +31,7 @@ POS_OFFSETS_2D = [(0, 1), (1, -1), (1, 0), (1, 1)]
 LAUNCHES = 0
 
 _ENTRY = {torch.float32: "stencil2d_half_f32", torch.float64: "stencil2d_half_f64"}
+_INFO_ENTRY = {torch.float32: "stencil2d_half_info_f32", torch.float64: "stencil2d_half_info_f64"}
 
 
 def half_planes_2d(C: torch.Tensor) -> torch.Tensor:
@@ -79,10 +81,22 @@ def _check(C_half: torch.Tensor, u: torch.Tensor) -> None:
         raise ValueError(f"extent of u {tuple(u.shape)} exceeds the kernel's int sizes")
 
 
-def stencil_apply_half_2d(C_half: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def kernel_info(
+    S: int, nr: int, dtype: torch.dtype = torch.float32, tile_rows: int = 0
+) -> dict:
+    """Registers, spill bytes, shared memory, tile height, solves per group and
+    resident blocks per SM of a launch with S solves on rows of nr nodes."""
+    return build.kernel_info(_INFO_ENTRY[dtype], S, nr, tile_rows)
+
+
+def stencil_apply_half_2d(
+    C_half: torch.Tensor, u: torch.Tensor, tile_rows: int = 0
+) -> torch.Tensor:
     """y = A u from half storage: plain torch for CPU tensors, else the kernel.
 
     C_half: (B, 5, NZ, NR) from :func:`half_planes_2d`; u: (B, S, NZ, NR).
+    ``tile_rows`` forces the kernel's rows per block (a tuning sweep's knob; 0
+    is the kernel's own choice and what every caller uses).
     """
     global LAUNCHES
     if u.device.type == "cpu" and C_half.device.type == "cpu":
@@ -96,7 +110,7 @@ def stencil_apply_half_2d(C_half: torch.Tensor, u: torch.Tensor) -> torch.Tensor
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRY[u.dtype])(
-            C_half.data_ptr(), u.data_ptr(), y.data_ptr(), B, S, nz, nr, stream
+            C_half.data_ptr(), u.data_ptr(), y.data_ptr(), B, S, nz, nr, tile_rows, stream
         )
     if err != 0:
         raise RuntimeError(f"stencil2d_half launch failed: CUDA error {err}")

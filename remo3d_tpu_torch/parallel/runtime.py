@@ -135,13 +135,17 @@ def _assemble3(coords, sigma, free, metric="cartesian"):
     return C_raw, apply_dirichlet_3d(C_raw, free)
 
 
-def _apply3(C, use_kernel: bool):
+def _apply3(C, use_kernel: bool, pole: bool = False):
     """The operator of stencil C: the half-storage wrapper (the CUDA kernel on
-    CUDA tensors) or the full 27-plane apply."""
-    if not use_kernel:
-        return lambda u: stencil3d_apply(C, u)
-    C_half = half_planes_3d(C)
-    return lambda u: stencil3d_apply_half(C_half, u)
+    CUDA tensors) or the full 27-plane apply. With ``pole`` it is the pole-tied
+    operator P A P, P = :func:`pole_project`: one wrapper call (the kernel ties
+    the pole on the slab it holds), or the plain apply between two projections."""
+    if use_kernel:
+        C_half = half_planes_3d(C)
+        return lambda u: stencil3d_apply_half(C_half, u, pole=pole)
+    if pole:
+        return lambda u: pole_project(stencil3d_apply(C, pole_project(u)))
+    return lambda u: stencil3d_apply(C, u)
 
 
 def _build_rhs3_subtract(coords, sigma, free, src_i, src_fac, apply_raw, metric="cartesian"):
@@ -165,11 +169,11 @@ def _build_rhs3_subtract(coords, sigma, free, src_i, src_fac, apply_raw, metric=
     return rhs, (g_lift + u_s)[..., :, 0, 0]
 
 
-def _pcg3(C, b, u_axis_offset, apply, *, tol, maxiter, precond="adi", adi_damp=0.6):
+def _pcg3(C, b, u_axis_offset, matvec, *, tol, maxiter, precond="adi", adi_damp=0.6):
     """Pole-tied line-preconditioned CG + axis readout.
 
-    ``apply`` is the operator (the half-storage kernel wrapper or the full
-    27-plane apply). Preconditioners, with exact factored-PCR line solves:
+    ``matvec`` is the pole-tied operator P A P (``_apply3(C, use_kernel,
+    pole=True)``). Preconditioners, with exact factored-PCR line solves:
 
     * ``"adi"``: damped symmetric multiplicative sweep z-p-r-p-z; the damping
       keeps the sweep contractive (undamped, modes with rho(T^-1 A) > 2
@@ -177,9 +181,6 @@ def _pcg3(C, b, u_axis_offset, apply, *, tol, maxiter, precond="adi", adi_damp=0
     * ``"lines"``: additive average of the three line solves.
     """
     factors = {d: line_factor3(C, d) for d in ("z", "p", "r")}
-
-    def matvec(p):
-        return pole_project(apply(pole_project(p)))
 
     if precond == "adi":
         def M_inv(r):
@@ -214,7 +215,8 @@ def _solve_chunk_3d(
     ``fac/(2*pi*sigma0*d)`` of every source is removed, so CG solves only for
     the smooth heterogeneity correction. ``use_kernel`` routes every operator
     apply (the CG matvec, the ADI sweep and the boundary-lift product) through
-    the half-storage stencil wrapper: the CUDA kernel on CUDA tensors.
+    the half-storage stencil wrapper: the CUDA kernel on CUDA tensors, which
+    also ties the pole around the matvec and the sweep's applies.
     """
     nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
     C_raw, C = _assemble3(coords, sigma, free, metric=metric)
@@ -231,7 +233,7 @@ def _solve_chunk_3d(
         b[..., 0] = b_axis[..., None]
         u_axis_offset = torch.zeros_like(b_axis)
     return _pcg3(
-        C, b, u_axis_offset, _apply3(C, use_kernel), tol=tol, maxiter=maxiter,
+        C, b, u_axis_offset, _apply3(C, use_kernel, pole=True), tol=tol, maxiter=maxiter,
         precond=precond, adi_damp=adi_damp,
     )
 

@@ -14,6 +14,7 @@ from chip_smoke import (
     BM3_BOREHOLE,
     BM3_FORMATION,
     KERNEL3D_SHAPES,
+    TOL_POLE,
     random_symmetric_stencil_2d,
     random_symmetric_stencil_3d,
 )
@@ -21,8 +22,10 @@ from remo3d_tpu_torch import Model
 from remo3d_tpu_torch.kernels import stencil2d, stencil3d
 from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
 from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
+from remo3d_tpu_torch.ops.stencil3d import pole_project
 
-SHAPES = [(1, 2, 7, 5), (2, 3, 33, 17), (3, 5, 97, 33)]
+# The last has NZ no multiple of the tile height and NR no multiple of 4.
+SHAPES = [(1, 2, 7, 5), (2, 3, 33, 17), (3, 5, 97, 33), (2, 3, 37, 23)]
 
 
 @pytest.fixture
@@ -74,22 +77,73 @@ def test_small_log_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pole", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("shape", KERNEL3D_SHAPES)
-def test_kernel3d_matches_plain(cuda_device, shape, dtype, tol):
+def test_kernel3d_matches_plain(cuda_device, shape, dtype, tol, pole):
     """K2 against its plain version on the card at the 3D path's chunk shape,
-    the high_dip grid and an edge case (relative to max|y|); one launch each."""
+    the high_dip grid, an edge case, a shape whose NZ is no multiple of the
+    tile height and one lower than a tile (relative to max|y|); one launch
+    each. With the pole tie also against the kernel between two pole_project
+    calls, which differs only in the order of the mean over the azimuth
+    (1e-6 of max|y| in float32, 1e-13 in float64); u is not modified."""
     rng = np.random.default_rng(6)
     B, S, NZ, NP, NR = shape
     C = torch.as_tensor(random_symmetric_stencil_3d(rng, B, NZ, NP, NR), device=cuda_device)
     C_half = stencil3d.half_planes_3d(C.to(dtype))
     u = torch.as_tensor(rng.standard_normal(shape), device=cuda_device).to(dtype)
+    u_before = u.clone()
     before = stencil3d.LAUNCHES
-    out = stencil3d.stencil3d_apply_half(C_half, u)
+    out = stencil3d.stencil3d_apply_half(C_half, u, pole=pole)
     torch.cuda.synchronize()
     assert stencil3d.LAUNCHES == before + 1
-    ref = stencil3d.stencil3d_apply_half_plain(C_half, u)
-    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(u, u_before)
+    ref = stencil3d.stencil3d_apply_half_plain(C_half, u, pole=pole)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol * scale
+    if pole:
+        composed = pole_project(stencil3d.stencil3d_apply_half(C_half, pole_project(u)))
+        name = "float32" if dtype == torch.float32 else "float64"
+        assert float((out - composed).abs().max()) <= TOL_POLE[name] * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_refuse_a_grid_beyond_shared_memory(cuda_device, dtype):
+    """One solve's three planes (K2) or three rows (K1) must fit in the 227 KB
+    of shared memory a block may have; a larger grid raises, with no fallback
+    and no count."""
+    np_, nr = 300, 300  # 3 planes x 90,000 nodes x 4 B = 1.08 MB
+    C_half = torch.zeros((1, 14, 3, np_, nr), dtype=dtype, device=cuda_device)
+    u = torch.zeros((1, 1, 3, np_, nr), dtype=dtype, device=cuda_device)
+    before = stencil3d.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil3d.stencil3d_apply_half(C_half, u)
+    assert stencil3d.LAUNCHES == before
+    nr2 = 30000  # 3 rows x 30,000 nodes x 4 B = 360 KB
+    C2 = torch.zeros((1, 5, 3, nr2), dtype=dtype, device=cuda_device)
+    u2 = torch.zeros((1, 1, 3, nr2), dtype=dtype, device=cuda_device)
+    before = stencil2d.LAUNCHES
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil2d.stencil_apply_half_2d(C2, u2)
+    assert stencil2d.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_kernel3d_takes_solves_in_groups_when_they_do_not_fit(cuda_device):
+    """Planes so large that not all S slabs fit in shared memory: the kernel
+    takes the solves in groups and still agrees with its plain version."""
+    shape = (1, 4, 5, 60, 100)  # 3 planes x 6000 nodes x 8 B = 144 KB per solve
+    rng = np.random.default_rng(8)
+    B, S, NZ, NP, NR = shape
+    C = torch.as_tensor(random_symmetric_stencil_3d(rng, B, NZ, NP, NR), device=cuda_device)
+    C_half = stencil3d.half_planes_3d(C)
+    u = torch.as_tensor(rng.standard_normal(shape), device=cuda_device)
+    assert stencil3d.kernel_info(S, NP, NR, torch.float64)["solves_per_group"] < S
+    for pole in (False, True):
+        out = stencil3d.stencil3d_apply_half(C_half, u, pole=pole)
+        ref = stencil3d.stencil3d_apply_half_plain(C_half, u, pole=pole)
+        assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 @pytest.mark.cuda
