@@ -29,14 +29,34 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
    30 on the default 193x17x49 grid, with the launch counts read around it;
 9. the first 20 depths of that log again with the kernels off;
 10. 3D cross-check in float64: 3 depths on the card and on the CPU agree;
-11. 3D physics: a uniform medium at dip 30 reads the true resistivity.
+11. 3D physics: a uniform medium at dip 30 reads the true resistivity;
+12. the 2D preconditioner screen: the log of phase 4 through multigrid,
+    ``preconditioner="direct"`` with ``direct_schedule`` "bcr" and "scan", the
+    same three again in reverse order, and "fp" on the first 10 depths beside a
+    multigrid run of those; every direct log agrees with a float64 direct log
+    and with the multigrid one, has no failed solve and launched K1; wall,
+    solve and factor seconds, CG iterations, launches and peak memory per run;
+13. the same screen in 3D: the log of phase 8 through "adi" and
+    ``precond3d="direct"`` ("bcr", "scan"; "fp" on the first 10 depths), K2's
+    launches;
+14. float64 direct cross-check, 2D and 3D, "scan" and "bcr": 3 depths on the
+    card and on the CPU agree;
+15. the TF32 guard: with TF32 products switched on by the caller, the direct
+    factor and apply give the same result as with them off, and the caller's
+    setting is unchanged afterwards.
 
 The line before the last is a JSON object with one entry per kernel; the last
 is ``{"ok": true, "device": {...}}``.
 
+``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone.
 ``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
 one warm phase-8 log with torch.profiler: kernel time by part and the device
 busy share (the union of kernel intervals over the wall).
+``python3 chip_smoke.py --profile-direct`` instead profiles one warm direct
+log per dimension and exact schedule ("bcr", "scan"): wall, busy share, the
+factorization's seconds and the ten device activities that take most time.
+``python3 chip_smoke.py --tune-direct`` instead times ``torch.linalg.inv`` at
+the direct solvers' block shapes and the 3D factorizations per ``z_block``.
 ``python3 chip_smoke.py --tune`` instead times both kernels at their main
 shapes for every tile height, to choose the kernels' automatic one.
 ``python3 chip_smoke.py --probe`` instead times K2 beside its probe builds
@@ -47,6 +67,7 @@ say what its time is spent on.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -110,6 +131,25 @@ LOG_REL_PAIR = 4.4e-4
 LOG3D_REL_PAIR = 1e-3
 LOG3D_REL_F64 = 1e-8
 UNIFORM3D_REL = 1e-3
+# A float32 direct-preconditioned log against the float64 direct log of the
+# same plan (tol 1e-10, so meshing, assembly and load are float64 too): on the
+# 761x161 grid the float32 multigrid log itself sits 5.6e-4 from it (tool
+# M4.0A0.5B; the others 2.0e-4 to 3.4e-4) and the direct logs 5.6e-4 to 6.2e-4,
+# measured on an H100. Against the float32 multigrid (2D) or "adi" (3D) log,
+# which carries its own such spread: 6e-4 in 2D (1.3x the largest reading on an
+# H100, 4.65e-4 for the chain), LOG3D_REL_PAIR in 3D.
+LOG64_REL = 1e-3
+DIRECT_REL = {"2D": (LOG64_REL, 6e-4), "3D": (LOG64_REL, LOG3D_REL_PAIR)}
+# CG iterations per chunk under an exact direct factor ("scan", "bcr"): 3-4
+# measured on an H100 at full width. A factor that has gone wrong still lets CG
+# converge, in tens of iterations, so the count is the check on the factor.
+DIRECT_MAX_ITERATIONS = 8
+# float64 direct logs, card against CPU, at tol 1e-12 (2D) and 1e-10 (3D).
+DIRECT_F64_REL = 1e-8
+# Depths of the "fp" runs (the truncated factor takes hundreds of CG
+# iterations, each with two NZ-step sweeps), and its pass counts.
+N_FP_DEPTHS = 10
+FP_PASSES = {"2D": 32, "3D": 8}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 / float64 flop/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -535,7 +575,7 @@ def run_2d(torch, card):
 
     # ---- 5. cross-check against the CPU ----------------------------------------------
     sub = DEPTHS[[20, 50, 80]]
-    same_mesh = {"device_meshing": True}
+    same_mesh = {"device_meshing": True, "preconditioner": "multigrid"}
     runs = {}
     for device in ("cuda", "cpu"):
         m = Model.compute_synthetic_logs(
@@ -629,7 +669,8 @@ def run_3d(torch, card):
     sub = np.array([11.5, 12.5, 13.5])
     runs = {}
     for device in ("cuda", "cpu"):
-        m = log_3d(torch, sub, device=device, dtype="float64", tol=1e-10, grid_spec3d=spec)
+        m = log_3d(torch, sub, device=device, dtype="float64", tol=1e-10, grid_spec3d=spec,
+                   executor_overrides={"precond3d": "adi"})
         runs[device] = m.logs[TOOLS_3D[0]][:, 1]
     rel_cpu = float(np.max(np.abs(runs["cuda"] / runs["cpu"] - 1)))
     log(
@@ -655,6 +696,273 @@ def run_3d(torch, card):
     if not worst_u <= UNIFORM3D_REL:
         raise AssertionError(f"3D uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > {UNIFORM3D_REL}")
     return launches
+
+
+def measured_log(torch, make_log):
+    """One log through ``Model.compute_synthetic_logs``: the kernels' counts
+    set to 0 just before it and read just after, the wall around it, the peak
+    of allocated device memory inside it. Returns (model, row)."""
+    gc.collect()  # the peak is of this run alone
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model = make_log()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    report = model.last_report
+    return model, {
+        "wall_s": wall,
+        "solve_s": report["phases"]["solve"],
+        "factor_s": report["factor_seconds"],
+        "mesh_s": report["phases"]["mesh"],
+        "chunk": int(report["chunk"]),
+        "cg_iterations": [int(c["iterations"]) for c in report["chunks"]],
+        "solves": int(sum(c["solves"] for c in report["chunks"])),
+        "failed_solves": int(report["n_failed_solves"]),
+        "launches": counts,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit):
+    """Phases 12 and 13: one workload through the iterative preconditioner and
+    the direct one under each schedule, in turns (iterative, bcr, scan, scan,
+    bcr, iterative), then "fp" and the iterative one on the first depths.
+
+    ``make_log(depths, overrides, **kwargs)`` runs the log; ``readouts(model)``
+    gives its values as an array. The reference is a float64 direct log at tol
+    1e-10. Every float32 direct log is held to DIRECT_REL (relative) against
+    it and against the first iterative log of the same depths, must have no
+    failed solve and no NaN, must have launched ``kernel`` and, under an exact
+    factor, must take at most DIRECT_MAX_ITERATIONS CG iterations per chunk; the
+    iterative logs' distance from the reference is printed. Returns the rows."""
+    key = "precond3d" if dim == "3D" else "preconditioner"
+    limit64, limit = DIRECT_REL[dim]
+
+    def direct(schedule, **more):
+        return {key: "direct", "direct_schedule": schedule, **more}
+
+    turns = [
+        (iterative, {key: iterative}), ("direct-bcr", direct("bcr")),
+        ("direct-scan", direct("scan")), ("direct-scan", direct("scan")),
+        ("direct-bcr", direct("bcr")), (iterative, {key: iterative}),
+    ]
+    sub = depths[:N_FP_DEPTHS]
+    turns_fp = [
+        (iterative, {key: iterative}),
+        ("direct-fp", direct("fp", direct_factor_passes=FP_PASSES[dim])),
+    ]
+    rows, faults = [], []
+    for d, group in ((depths, turns), (sub, turns_fp)):
+        t0 = time.perf_counter()
+        truth = readouts(make_log(d, {key: "direct"}, dtype="float64", tol=1e-10))
+        log(f"{dim} screen: float64 direct reference log of {len(d)} depths in "
+            f"{time.perf_counter() - t0:.3f} s")
+        if not np.isfinite(truth).all():
+            raise AssertionError(f"{dim}: non-finite readouts in the float64 reference log")
+        ref = None
+        for name, overrides in group:
+            model, row = measured_log(torch, lambda: make_log(d, overrides))
+            vals = readouts(model)
+            n_nan = int((~np.isfinite(vals)).sum())
+            if ref is None:
+                ref = vals
+            rel = float(np.max(np.abs(vals / ref - 1)))
+            rel64 = float(np.max(np.abs(vals / truth - 1)))
+            row = {"dim": dim, "preconditioner": name, "depths": len(d), **row,
+                   "rate_per_s": len(d) * vals.shape[1] / row["wall_s"], "unit": unit,
+                   "rel_to_iterative": rel, "rel_to_float64": rel64}
+            if name == "direct-fp":
+                row["passes"] = FP_PASSES[dim]
+            rows.append(row)
+            log(
+                f"{dim} screen on {card}: {name:<12s} {len(d):3d} depths: wall "
+                f"{row['wall_s']:.3f} s "
+                f"(solve {row['solve_s']:.3f} s, of which factor {row['factor_s']:.3f} s; mesh "
+                f"{row['mesh_s']:.3f} s), {row['rate_per_s']:.3f} {unit}/s, {row['solves']} solves "
+                f"in "
+                f"chunks of B={row['chunk']}, CG iterations {row['cg_iterations']}, launches "
+                f"{row['launches']}, peak memory {row['peak_memory_bytes'] / 1e9:.3f} GB, readouts "
+                f"vs {iterative} {rel:.3e} (limit {limit:g}), vs float64 {rel64:.3e} (limit for "
+                f"direct {limit64:g})"
+            )
+            log("  per column vs float64: " + ", ".join(
+                f"{float(np.max(np.abs(vals[:, i] / truth[:, i] - 1))):.1e}"
+                for i in range(vals.shape[1])))
+            if n_nan or row["failed_solves"]:
+                faults.append(f"{name}: {n_nan} non-finite readouts, {row['failed_solves']} "
+                              f"failed solves")
+            most = DIRECT_MAX_ITERATIONS if name in ("direct-bcr", "direct-scan") else 999
+            if not all(0 < k <= most for k in row["cg_iterations"]):
+                faults.append(f"{name}: CG iterations {row['cg_iterations']} (at most {most})")
+            if not rel <= limit:
+                faults.append(f"{name} vs {iterative}: rel diff {rel:.2e} > {limit}")
+            if name.startswith("direct") and not rel64 <= limit64:
+                faults.append(f"{name} vs float64: rel diff {rel64:.2e} > {limit64}")
+            if name.startswith("direct") and row["launches"][kernel] < sum(row["cg_iterations"]):
+                faults.append(f"{name}: {kernel} launched {row['launches'][kernel]} times for CG "
+                              f"iterations {row['cg_iterations']}")
+    if faults:  # after every row was printed
+        raise AssertionError(f"{dim} screen: " + "; ".join(faults))
+    return rows
+
+
+def screen_2d(torch, card):
+    """Phase 12: the 2D log of phase 4 under each preconditioner."""
+    from remo3d_tpu_torch import Model
+
+    def make_log(depths, overrides, dtype="float32", **kwargs):
+        return Model.compute_synthetic_logs(
+            EXAMPLE01_TOOLS, depths, FORMATION, BOREHOLE, borehole_geometry_type="radius",
+            domain_radius=50, batch_size=5, dtype=dtype, device="cuda", verbose=False,
+            executor_overrides=overrides, **kwargs,
+        )
+
+    def readouts(model):
+        return np.stack([model.logs[t][:, 1] for t in EXAMPLE01_TOOLS], axis=1)
+
+    return screen(torch, card, "2D", make_log, readouts, DEPTHS, "stencil2d_half", "multigrid",
+                  "readouts")
+
+
+def screen_3d(torch, card):
+    """Phase 13: the 3D log of phase 8 under each preconditioner."""
+
+    def make_log(depths, overrides, dtype="float32", **kwargs):
+        return log_3d(torch, depths, device="cuda", dtype=dtype, executor_overrides=overrides,
+                      **kwargs)
+
+    def readouts(model):
+        return model.logs[TOOLS_3D[0]][:, 1:2]
+
+    return screen(torch, card, "3D", make_log, readouts, DEPTHS_3D, "stencil3d_half", "adi",
+                  "points")
+
+
+def direct_f64_cross_check(torch):
+    """Phase 14: float64 direct logs on the card against the CPU, 3 depths,
+    2D on a 97x33 grid at tol 1e-12 and 3D on 49x9x17 at tol 1e-10."""
+    from remo3d_tpu_torch import Model
+    from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
+    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
+
+    spec2 = GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2)
+    spec3 = GridSpec3D(nz=49, np_=9, nr=17, n_wall_cells=3, n_blend_cells=2)
+    for schedule in ("scan", "bcr"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            m2 = Model.compute_synthetic_logs(
+                EXAMPLE01_TOOLS, DEPTHS[[20, 50, 80]], FORMATION, BOREHOLE,
+                borehole_geometry_type="radius", dtype="float64", tol=1e-12, device=device,
+                verbose=False, grid_spec=spec2,
+                executor_overrides={"device_meshing": True, "preconditioner": "direct",
+                                    "direct_schedule": schedule},
+            )
+            m3 = log_3d(torch, np.array([11.5, 12.5, 13.5]), device=device, dtype="float64",
+                        tol=1e-10, grid_spec3d=spec3,
+                        executor_overrides={"precond3d": "direct", "direct_schedule": schedule})
+            runs[device] = (
+                np.stack([m2.logs[t][:, 1] for t in EXAMPLE01_TOOLS], axis=1),
+                m3.logs[TOOLS_3D[0]][:, 1],
+                [c["iterations"] for c in m2.last_report["chunks"]],
+                [c["iterations"] for c in m3.last_report["chunks"]],
+            )
+        rel2 = float(np.max(np.abs(runs["cuda"][0] / runs["cpu"][0] - 1)))
+        rel3 = float(np.max(np.abs(runs["cuda"][1] / runs["cpu"][1] - 1)))
+        log(
+            f"float64 direct-{schedule} cross-check, cuda vs cpu: 2D 97x33 {rel2:.3e} (CG "
+            f"iterations "
+            f"{runs['cuda'][2]} / {runs['cpu'][2]}), 3D 49x9x17 {rel3:.3e} (CG iterations "
+            f"{runs['cuda'][3]} / {runs['cpu'][3]}); limit {DIRECT_F64_REL:g}"
+        )
+        ok = all(np.isfinite(a).all() for run in runs.values() for a in run[:2])
+        if not (ok and rel2 <= DIRECT_F64_REL and rel3 <= DIRECT_F64_REL):
+            raise AssertionError(f"float64 direct-{schedule}: cuda vs cpu {rel2:.2e}, {rel3:.2e}")
+
+
+def tf32_guard(torch):
+    """Phase 15: the direct factor and apply under a caller who has switched
+    TF32 products on. At the 2D path's width (761 lines of 161 nodes, 4
+    batches x 5 solves) and on 33 planes of 17x49 in 3D, for "scan" and "bcr":
+    the result must equal the one computed with TF32 off, the residual with it,
+    and the caller's setting must still be there afterwards. For scale, the
+    chain's apply without its guard is run under TF32 too."""
+    from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d
+    from remo3d_tpu_torch.ops.stencil import stencil_apply
+    from remo3d_tpu_torch.ops.stencil3d import stencil3d_apply
+
+    rng = np.random.default_rng(15)
+    B, S = 4, 5
+    C2 = torch.as_tensor(random_symmetric_stencil_2d(rng, B, 761, 161), device="cuda").float()
+    b2 = torch.as_tensor(rng.standard_normal((B, S, 761, 161)), device="cuda").float()
+    np_, nr = 17, 49
+    C3 = random_symmetric_stencil_3d(rng, 2, 33, np_, nr)
+    C3[..., 13] += 20.0  # 26 unit-variance couplings: make the diagonal dominate
+    C3 = torch.as_tensor(C3, device="cuda").float()
+    b3 = torch.as_tensor(rng.standard_normal((2, S, 33, np_, nr)), device="cuda").float()
+    cases = {
+        "2D scan": (lambda: block_direct.block_thomas_factor(C2),
+                    lambda F: block_direct.block_thomas_apply(F, C2, b2),
+                    lambda x: stencil_apply(C2, x) - b2, b2),
+        "2D bcr": (lambda: block_bcr.bcr_factor(C2), lambda F: block_bcr.bcr_apply(F, b2),
+                   lambda x: stencil_apply(C2, x) - b2, b2),
+        "3D scan": (lambda: block_direct3d.block_thomas_factor_3d(C3, np_, nr),
+                    lambda F: block_direct3d.block_thomas_apply_3d(F, C3, b3, np_, nr),
+                    lambda x: stencil3d_apply(C3, x) - b3, b3),
+        "3D bcr": (lambda: block_bcr3d.bcr_factor_3d(C3, np_, nr),
+                   lambda F: block_bcr3d.bcr_apply_3d(F, b3, np_, nr),
+                   lambda x: stencil3d_apply(C3, x) - b3, b3),
+    }
+    before = torch.get_float32_matmul_precision()
+    if before != "highest":
+        raise AssertionError(f"float32 matmul precision is {before!r} at the start")
+    for name, (factor, apply, residual, b) in cases.items():
+        results = {}
+        for setting in ("highest", "high"):
+            torch.set_float32_matmul_precision(setting)
+            try:
+                x = apply(factor())
+                after = torch.get_float32_matmul_precision()
+            finally:
+                torch.set_float32_matmul_precision(before)
+            if after != setting:
+                raise AssertionError(f"{name}: the caller's {setting!r} became {after!r}")
+            results[setting] = (x, float(residual(x).abs().max() / b.abs().max()))
+        same = torch.equal(results["highest"][0], results["high"][0])
+        r_off, r_on = results["highest"][1], results["high"][1]
+        log(f"TF32 guard {name}: residual max|Ax-b|/max|b| {r_off:.3e} with TF32 off, {r_on:.3e} "
+            f"with the caller's TF32 on; results {'equal' if same else 'differ'}")
+        if not (same and r_on == r_off and r_on <= 1e-4):
+            raise AssertionError(f"TF32 guard {name}: {r_off:.3e} vs {r_on:.3e}, equal: {same}")
+        del results
+    # What the guard keeps out: the chain's apply without it, TF32 on.
+    F = block_direct.block_thomas_factor(C2)
+    torch.set_float32_matmul_precision("high")
+    try:
+        allow = torch.backends.cuda.matmul.allow_tf32
+        x = block_direct.block_thomas_apply.__wrapped__(F, C2, b2)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    r_bare = float((stencil_apply(C2, x) - b2).abs().max() / b2.abs().max())
+    log(f"TF32 guard: 2D scan apply without the guard under TF32 (allow_tf32 = {allow}): "
+        f"residual {r_bare:.3e}")
+    if not allow:
+        raise AssertionError("set_float32_matmul_precision('high') did not switch TF32 on")
+    torch.cuda.empty_cache()
+
+
+def run_screen(torch, card):
+    """Phases 12-15; returns the screen's rows."""
+    rows = screen_2d(torch, card)
+    torch.cuda.empty_cache()
+    rows += screen_3d(torch, card)
+    torch.cuda.empty_cache()
+    direct_f64_cross_check(torch)
+    tf32_guard(torch)
+    return rows
 
 
 def probe(torch, card):
@@ -695,6 +1003,129 @@ def probe(torch, card):
         log(f"probe K2 {shape} float32 on {card}: {key}: {float(np.median(times[key])):.4f} ms")
 
 
+def device_activity(torch, events, skip=()):
+    """Of a profile's events: the device activities (kernels and copies, without
+    the device-side copies of the annotation ranges named in ``skip``), the sum
+    of their times and the union of their intervals, both in ms."""
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in skip]
+    total = sum(e.device_time_total for e in kernels) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return kernels, total, busy / 1e3
+
+
+def profile_direct(torch, card):
+    """One warm direct log per dimension and exact schedule under
+    torch.profiler: the wall, the device busy share (union of kernel
+    intervals over the profiled wall), the factorization's seconds and the
+    ten device activities that take most time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from remo3d_tpu_torch import Model
+
+    def log_2d(overrides):
+        return Model.compute_synthetic_logs(
+            EXAMPLE01_TOOLS, DEPTHS, FORMATION, BOREHOLE, borehole_geometry_type="radius",
+            dtype="float32", device="cuda", verbose=False, executor_overrides=overrides)
+
+    def log_3(overrides):
+        return log_3d(torch, DEPTHS_3D, device="cuda", dtype="float32",
+                      executor_overrides=overrides)
+
+    cases = [
+        (f"{dim} direct-{schedule}", make, {key: "direct", "direct_schedule": schedule})
+        for dim, make, key in (("2D", log_2d, "preconditioner"), ("3D", log_3, "precond3d"))
+        for schedule in ("bcr", "scan")
+    ]
+    for label, make, overrides in cases:
+        make(overrides)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model = make(overrides)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels, total, busy = device_activity(torch, prof.events())
+        report = model.last_report
+        log(f"profile {label} on {card}: wall {wall_ms:.1f} ms (solve phase "
+            f"{report['phases']['solve'] * 1e3:.1f} ms, of which factor "
+            f"{report['factor_seconds'] * 1e3:.1f} ms), CG iterations "
+            f"{[c['iterations'] for c in report['chunks']]}, {len(kernels)} device activities, "
+            f"kernel time {total:.1f} ms, busy {busy:.1f} ms = {busy / wall_ms:.3f} of the wall")
+        log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=10,
+                                      max_name_column_width=60))
+        del prof, model
+
+
+def tune_direct(torch, card):
+    """What the direct solvers' inversions cost and how ``z_block`` was chosen:
+    ``torch.linalg.inv`` beside a Cholesky route at the block shapes of the two
+    main paths, then ``bcr_factor_3d`` at (8, 193, 17, 49) and
+    ``schur_fixedpoint_factor_3d`` at two batches for several ``z_block``."""
+    from remo3d_tpu_torch.ops.block_bcr3d import bcr_apply_3d, bcr_factor_3d
+    from remo3d_tpu_torch.ops.block_direct3d import schur_fixedpoint_factor_3d
+
+    def wall_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    shapes = [(74, 161, 161), (28120, 161, 161), (8, 833, 833), (64, 833, 833), (8, 1625, 1625)]
+    for shape in shapes:
+        A = torch.randn(shape, device="cuda")
+        A = A @ A.transpose(-1, -2) + shape[-1] * torch.eye(shape[-1], device="cuda")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        inv = wall_ms(lambda: torch.linalg.inv(A))
+        extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+        chol = wall_ms(lambda: torch.cholesky_inverse(torch.linalg.cholesky(A)))
+        log(f"tune-direct on {card}: {shape} float32 SPD: torch.linalg.inv {inv:.2f} ms "
+            f"(+{extra:.2f} GB at its peak), cholesky + cholesky_inverse {chol:.2f} ms")
+        del A
+    rng = np.random.default_rng(0)
+    np_, nr = KERNEL3D_SHAPES[0][3:]
+    C = random_symmetric_stencil_3d(rng, 8, 193, np_, nr)
+    C[..., 13] += 20.0  # 26 unit-variance couplings: make the diagonal dominate
+    C = torch.as_tensor(C, device="cuda").float()
+    b = torch.randn(KERNEL3D_SHAPES[0], device="cuda")
+    for z_block in (4, 8, 16, 32, 96):
+        F = None
+        torch.cuda.reset_peak_memory_stats()
+
+        def factor():
+            nonlocal F
+            F = None
+            F = bcr_factor_3d(C, np_, nr, z_block=z_block)
+
+        f_ms = wall_ms(factor, n=2)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        a_ms = wall_ms(lambda: bcr_apply_3d(F, b, np_, nr))
+        log(f"tune-direct on {card}: bcr_factor_3d (8,193,{np_},{nr}) z_block {z_block}: "
+            f"{f_ms:.1f} ms, peak {peak:.2f} GB; bcr_apply_3d on 5 solves {a_ms:.2f} ms")
+        del F
+    for z_block in (8, 16, 64):
+        torch.cuda.reset_peak_memory_stats()
+        f_ms = wall_ms(lambda: schur_fixedpoint_factor_3d(C[:2], np_, nr, passes=8,
+                                                          z_block=z_block), n=1)
+        log(f"tune-direct on {card}: schur_fixedpoint_factor_3d (2,193,{np_},{nr}) 8 passes "
+            f"z_block {z_block}: {f_ms:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def profile_3d(torch, card):
     """One warm phase-8 log under torch.profiler: kernel time of K2, of the
     PCR line apply, of the pole projection and of the rest, and the device
@@ -722,23 +1153,7 @@ def profile_3d(torch, card):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     names = ("pcr_apply", "pole_project")
-    # Device activity (kernels, copies), without the GPU-side copies of the
-    # two annotation ranges.
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in names]
-    total = sum(e.device_time_total for e in kernels) / 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    busy /= 1e3
+    kernels, total, busy = device_activity(torch, events, names)
     k2 = sum(e.device_time_total for e in kernels if "stencil3d_half" in e.name) / 1e3
     ranges = {
         name: sum(e.device_time_total for e in events
@@ -792,8 +1207,19 @@ def main() -> int:
                 log("ptxas: " + line.strip())
     info = report_kernel_info(torch)
 
+    if sys.argv[1:] == ["--screen"]:
+        rows = run_screen(torch, card)
+        log(card)
+        print(json.dumps({"screen": rows}))
+        return 0
     if sys.argv[1:] == ["--profile3d"]:
         profile_3d(torch, card)
+        return 0
+    if sys.argv[1:] == ["--profile-direct"]:
+        profile_direct(torch, card)
+        return 0
+    if sys.argv[1:] == ["--tune-direct"]:
+        tune_direct(torch, card)
         return 0
     if sys.argv[1:] == ["--tune"]:
         tune(torch, card)
@@ -811,6 +1237,15 @@ def main() -> int:
     k2 = check_k2(torch)  # 7
     k2["launches"] = run_3d(torch, card)  # 8-11
     log(f"3D phases done at {time.perf_counter() - t_start:.1f} s")
+    rows = run_screen(torch, card)  # 12-15
+    log(f"screen done at {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"screen": rows}))
+    for k, name in ((k1, "stencil2d_half"), (k2, "stencil3d_half")):
+        dim = "2D" if name == "stencil2d_half" else "3D"
+        for schedule in ("bcr", "scan"):  # the first full-depth run of each
+            row = next(r for r in rows
+                       if r["dim"] == dim and r["preconditioner"] == f"direct-{schedule}")
+            k[f"launches_direct_{schedule}"] = row["launches"][name]
 
     main_info = {
         "stencil2d_half": info["K1 float32 S=5 NR=161"],

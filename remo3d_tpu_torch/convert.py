@@ -5,7 +5,9 @@ There are no weights in this system. What crosses from the JAX package to the
 port is the formation and borehole tables (numpy, taken by :class:`Model` as
 they are) and the per-chunk staged arrays of the chunk solve, which these
 helpers turn into the port's tensors so both packages can be fed identical
-inputs.
+inputs; and the factorizations of the block-direct solvers, whose layouts are
+the same in both packages, so that either package's apply can take the
+other's factor.
 """
 
 from __future__ import annotations
@@ -42,3 +44,26 @@ def stencil_to_torch(C, device, dtype):
     if C.shape[-2:] != (3, 3):
         raise ValueError(f"expected a (..., NZ, NR, 3, 3) stencil, got {C.shape}")
     return torch.tensor(C, device=device).to(dtype)
+
+
+def factors_to_torch(factors, device, dtype):
+    """A factorization of the JAX package's block-direct solvers -> the port's.
+
+    ``factors`` is what a JAX factor function returned, as numpy or JAX arrays
+    in the same nesting: the ``(NZ, B, N, N)`` stack of ``block_thomas_factor``
+    / ``schur_fixedpoint_factor`` (2D and 3D), the ``(levels, G_root)`` tuple of
+    ``bcr_factor``, or the ``(lvl0, dense_factors)`` of ``bcr_factor_3d``.
+    Tuples stay tuples and lists lists; every array becomes a ``dtype`` tensor
+    on ``device``, as the port's apply of the same name takes it.
+    """
+    if isinstance(factors, (tuple, list)):
+        return type(factors)(factors_to_torch(f, device, dtype) for f in factors)
+    return torch.tensor(np.asarray(factors), device=device).to(dtype)
+
+
+def factors_to_numpy(factors):
+    """The port's factorization -> numpy arrays in the same nesting, as the JAX
+    package's apply of the same name takes them."""
+    if isinstance(factors, (tuple, list)):
+        return type(factors)(factors_to_numpy(f) for f in factors)
+    return factors.detach().cpu().numpy()

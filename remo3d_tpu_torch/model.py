@@ -253,9 +253,13 @@ class Model:
     ):
         """Simulate all logs; returns {tool name: (n, 2) [depth, Ra]}.
 
-        ``preconditioner`` (2D): "auto" (= "multigrid"), "multigrid" or "local";
-        the 3D solver takes ``executor_overrides={"precond3d": ...}`` ("auto" =
-        "adi", or "lines").
+        ``preconditioner`` (2D): "multigrid", "local", "direct" (the batched
+        block-tridiagonal factorization, ``ops/block_direct.py``) or "auto"
+        (= "direct" on the CPU, "multigrid" on CUDA); the 3D solver takes
+        ``executor_overrides={"precond3d": ...}``: "adi", "lines", "direct" or
+        "auto" (= "direct" on the CPU, "adi" on CUDA). The direct solvers'
+        schedule is ``executor_overrides={"direct_schedule": ...}`` ("scan",
+        "bcr", "fp"; see ``ExecutorConfig``).
         ``device``: a torch device string ("cuda", "cuda:1", "cpu"); None means
         "cuda" and raises when no card is visible. ``tol`` (None = 3e-7 in 2D,
         1e-5 for the singularity-subtracted 3D solve), ``dtype`` ("float32" or

@@ -2,16 +2,18 @@
 """Batched solve executor on one torch device (a CUDA card or the CPU).
 
 Counterpart of ``remo3d_tpu.parallel.runtime`` for the 2D axisymmetric path
-(multigrid PCG) and the 3D dipping-layer path (ADI line-preconditioned PCG).
-All batch meshes of a chunk are stacked into fixed-shape tensors and solved
-together (assembly + batched PCG + axis readout); solves are uniform in cost by
-construction (fixed topology), so chunks are padded with benign lanes instead of
-being scheduled dynamically.
+(multigrid or block-direct PCG) and the 3D dipping-layer path (ADI line or
+block-direct PCG). All batch meshes of a chunk are stacked into fixed-shape
+tensors and solved together (assembly + batched PCG + axis readout); solves
+are uniform in cost by construction (fixed topology), so chunks are padded
+with benign lanes instead of being scheduled dynamically.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -34,6 +36,18 @@ from ..ops.assembly3d import (
     fold_to_stencil_3d,
     fundamental_potential_3d,
     singularity_rhs_3d,
+)
+from ..ops.block_bcr import bcr_apply, bcr_factor
+from ..ops.block_bcr3d import bcr_apply_3d, bcr_factor_3d
+from ..ops.block_direct import (
+    block_thomas_apply,
+    block_thomas_factor,
+    schur_fixedpoint_factor,
+)
+from ..ops.block_direct3d import (
+    block_thomas_apply_3d,
+    block_thomas_factor_3d,
+    schur_fixedpoint_factor_3d,
 )
 from ..ops.cg import pcg
 from ..ops.lines3d import line_apply3, line_factor3
@@ -75,7 +89,6 @@ def _solve_chunk(
     through the half-storage stencil wrapper (the CUDA kernel on CUDA tensors).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
-    freeb = free[:, None]  # broadcast over the solve axis
 
     # Assemble once; keep the raw stencil for the boundary-lift product and derive
     # the eliminated system + MG hierarchy from it.
@@ -103,7 +116,22 @@ def _solve_chunk(
         C = C_fine
         M_inv = None
     matvec = make_stencil_apply(C, True) if use_kernel else None
+    return _pcg2(
+        C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
+        tol=tol, maxiter=maxiter, subtract=subtract,
+    )
 
+
+def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, maxiter,
+          subtract):
+    """Load build + PCG + axis readout of a 2D chunk, whatever preconditions it.
+
+    ``C_raw`` is the assembled stencil, ``C`` the Dirichlet-eliminated operator
+    CG runs on, ``M_inv`` the preconditioner (None = point Jacobi) and
+    ``matvec`` the operator apply (None = the plain 9-point apply of ``C``).
+    """
+    nz, nr = coords.shape[-3], coords.shape[-2]
+    freeb = free[:, None]  # broadcast over the solve axis
     if subtract:
         sigma0 = sigma[:, 0, 0]  # borehole column = mud conductivity
         z_axis = coords[:, :, 0, 0]  # (B, NZ)
@@ -126,6 +154,75 @@ def _solve_chunk(
         u, info = pcg(C, b, M_inv=M_inv, tol=tol, maxiter=maxiter, matvec=matvec)
     # Axis potentials are all the readout needs (electrodes sit on axis nodes).
     return u[..., 0], info["rel_residual"], info["iterations"]
+
+
+@contextlib.contextmanager
+def _timed(timings: dict | None, name: str, device: torch.device):
+    """Time the block (None = no timing): ``timings[name]`` becomes a function
+    that returns the block's seconds. On the CPU that is the host's clock. On
+    a CUDA device the block lies between two events of the current stream, so
+    queued work is neither counted in nor left out and the host never waits;
+    the function may be called once the device has passed the second event,
+    as after the ``.cpu()`` of the chunk's results."""
+    if timings is None:
+        yield
+    elif device.type == "cuda":
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        timings[name] = lambda: start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        yield
+        seconds = time.perf_counter() - t0
+        timings[name] = lambda: seconds
+
+
+def _factor2_direct(C, *, schedule="scan", passes=None):
+    """Factorize the 2D block-tridiagonal operator; returns the function
+    r -> M^{-1} r that applies the factorization (and alone holds it).
+
+    ``schedule``: "scan" = the exact sequential block-LDL^T chain; "bcr" =
+    exact block cyclic reduction (log-depth batched stages,
+    ``ops/block_bcr.py``); "fp" = the batched Schur fixed-point approximation
+    with ``passes`` whole-stack inversions (8 when None): a valid SPD
+    preconditioner at any pass count, but the truncated chain converges slowly
+    on long grids, so CG takes many more iterations than with an exact factor.
+    ``passes`` means nothing to the exact schedules."""
+    if schedule == "bcr":
+        factors = bcr_factor(C)
+        return lambda r: bcr_apply(factors, r)
+    if schedule == "fp":
+        G_all = schur_fixedpoint_factor(C, passes=8 if passes is None else passes)
+    else:
+        G_all = block_thomas_factor(C)
+    return lambda r: block_thomas_apply(G_all, C, r)
+
+
+def _solve_chunk_direct(
+    coords, sigma, free, src_i, src_fac, *, tol, maxiter, subtract=True,
+    use_kernel=True, schedule="scan", factor_passes=None, timings=None,
+):
+    """2D chunk solve through the block-direct preconditioner: assembly, one
+    factorization of the chunk's operators, then PCG with the factorization's
+    apply as M^{-1} (a handful of iterations) and the axis readout.
+
+    Arguments and returns as :func:`_solve_chunk`. ``use_kernel`` routes the CG
+    matvec through the half-storage stencil wrapper (the CUDA kernel on CUDA
+    tensors). ``timings``, if a dict, gets the factorization's time under
+    "factor" (:func:`_timed`).
+    """
+    nz, nr = coords.shape[-3], coords.shape[-2]
+    C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
+    C = apply_dirichlet(C_raw, free)
+    with _timed(timings, "factor", C.device):
+        M_inv = _factor2_direct(C, schedule=schedule, passes=factor_passes)
+    matvec = make_stencil_apply(C, True) if use_kernel else None
+    return _pcg2(
+        C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
+        tol=tol, maxiter=maxiter, subtract=subtract,
+    )
 
 
 def _assemble3(coords, sigma, free, metric="cartesian"):
@@ -169,32 +266,53 @@ def _build_rhs3_subtract(coords, sigma, free, src_i, src_fac, apply_raw, metric=
     return rhs, (g_lift + u_s)[..., :, 0, 0]
 
 
-def _pcg3(C, b, u_axis_offset, matvec, *, tol, maxiter, precond="adi", adi_damp=0.6):
-    """Pole-tied line-preconditioned CG + axis readout.
+def _factor3_direct(C, *, np_, nr, schedule="scan", passes=None):
+    """Factorize the 3D banded-block-tridiagonal operator; ``schedule``,
+    ``passes`` and the returned apply as in :func:`_factor2_direct` ("bcr":
+    ``ops/block_bcr3d.py``). The apply leaves the axis DOFs untied."""
+    if schedule == "bcr":
+        factors = bcr_factor_3d(C, np_, nr)
+        return lambda r: bcr_apply_3d(factors, r, np_, nr)
+    if schedule == "fp":
+        G_all = schur_fixedpoint_factor_3d(C, np_, nr, passes=8 if passes is None else passes)
+    else:
+        G_all = block_thomas_factor_3d(C, np_, nr)
+    return lambda r: block_thomas_apply_3d(G_all, C, r, np_, nr)
+
+
+def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, precond="adi",
+          adi_damp=0.6):
+    """Pole-tied preconditioned CG + axis readout.
 
     ``matvec`` is the pole-tied operator P A P (``_apply3(C, use_kernel,
-    pole=True)``). Preconditioners, with exact factored-PCR line solves:
+    pole=True)``). Preconditioners (the line solves are exact, factored PCR):
 
     * ``"adi"``: damped symmetric multiplicative sweep z-p-r-p-z; the damping
       keeps the sweep contractive (undamped, modes with rho(T^-1 A) > 2
       diverge). Each application runs the operator 4 times.
     * ``"lines"``: additive average of the three line solves.
+    * ``"direct"``: ``direct_apply``, the banded-block factorization's apply
+      from :func:`_factor3_direct`. It leaves the axis DOFs untied, so
+      M^{-1} r = P apply(P r): a handful of CG iterations.
     """
-    factors = {d: line_factor3(C, d) for d in ("z", "p", "r")}
-
-    if precond == "adi":
+    if precond == "direct":
         def M_inv(r):
-            r = pole_project(r)
-            z = adi_damp * pole_project(line_apply3(factors["z"], r))
-            for d in ("p", "r", "p", "z"):
-                res = r - matvec(z)
-                z = z + adi_damp * pole_project(line_apply3(factors[d], res))
-            return z
+            return pole_project(direct_apply(pole_project(r)))
     else:
-        def M_inv(r):
-            r = pole_project(r)
-            z = sum(line_apply3(factors[d], r) for d in factors) / 3.0
-            return pole_project(z)
+        factors = {d: line_factor3(C, d) for d in ("z", "p", "r")}
+        if precond == "adi":
+            def M_inv(r):
+                r = pole_project(r)
+                z = adi_damp * pole_project(line_apply3(factors["z"], r))
+                for d in ("p", "r", "p", "z"):
+                    res = r - matvec(z)
+                    z = z + adi_damp * pole_project(line_apply3(factors[d], res))
+                return z
+        else:
+            def M_inv(r):
+                r = pole_project(r)
+                z = sum(line_apply3(factors[d], r) for d in factors) / 3.0
+                return pole_project(z)
 
     u, info = pcg(None, b, M_inv=M_inv, tol=tol, maxiter=maxiter, n_grid_axes=3, matvec=matvec)
     u_axis = u[..., :, :, 0].mean(dim=-1) + u_axis_offset
@@ -203,9 +321,10 @@ def _pcg3(C, b, u_axis_offset, matvec, *, tol, maxiter, precond="adi", adi_damp=
 
 def _solve_chunk_3d(
     coords, sigma, free, src_i, src_fac, *, tol, maxiter, subtract=True,
-    precond="adi", adi_damp=0.6, use_kernel=True, metric="cartesian",
+    precond="adi", adi_damp=0.6, use_kernel=True, schedule="scan", factor_passes=None,
+    metric="cartesian", timings=None,
 ):
-    """3D chunk solve: hex assembly + singularity subtraction + pole-tied line-CG.
+    """3D chunk solve: hex assembly + singularity subtraction + pole-tied CG.
 
     coords (B, NZ, NP, NR, 3), sigma (B, NZ-1, NP-1, NR-1), free (B, NZ, NP, NR),
     src_i (B, S, MAX_SOURCES) int64, src_fac (B, S, MAX_SOURCES).
@@ -216,7 +335,10 @@ def _solve_chunk_3d(
     the smooth heterogeneity correction. ``use_kernel`` routes every operator
     apply (the CG matvec, the ADI sweep and the boundary-lift product) through
     the half-storage stencil wrapper: the CUDA kernel on CUDA tensors, which
-    also ties the pole around the matvec and the sweep's applies.
+    also ties the pole around the matvec and the sweep's applies. With
+    ``precond="direct"`` the operator is factorized once per chunk under
+    ``schedule`` / ``factor_passes`` (:func:`_factor3_direct`); ``timings``, if
+    a dict, gets the factorization's time under "factor" (:func:`_timed`).
     """
     nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
     C_raw, C = _assemble3(coords, sigma, free, metric=metric)
@@ -232,9 +354,14 @@ def _solve_chunk_3d(
         b = torch.zeros((B, S, nz, np_, nr), dtype=coords.dtype, device=coords.device)
         b[..., 0] = b_axis[..., None]
         u_axis_offset = torch.zeros_like(b_axis)
+    direct_apply = None
+    if precond == "direct":
+        with _timed(timings, "factor", C.device):
+            direct_apply = _factor3_direct(
+                C, np_=np_, nr=nr, schedule=schedule, passes=factor_passes)
     return _pcg3(
-        C, b, u_axis_offset, _apply3(C, use_kernel, pole=True), tol=tol, maxiter=maxiter,
-        precond=precond, adi_damp=adi_damp,
+        C, b, u_axis_offset, _apply3(C, use_kernel, pole=True), direct_apply, tol=tol,
+        maxiter=maxiter, precond=precond, adi_damp=adi_damp,
     )
 
 
@@ -288,12 +415,26 @@ class ExecutorConfig:
     # 3D batch meshes per chunk (each ~160k nodes on the default grid), scaled
     # down as chunk_size_3d * 5 // S for more than 5 solves per batch.
     chunk_size_3d: int = 8
-    # "auto" (-> "multigrid" on every device), "multigrid", or "local" (point
-    # Jacobi). "direct" (block-direct solver) is ROADMAP slice 3.
+    # 2D: "auto", "multigrid", "local" (point Jacobi) or "direct" (batched
+    # block-LDL^T / cyclic reduction, ops/block_direct.py, ops/block_bcr.py).
+    # "auto" is "direct" on the CPU, as in the JAX package, and "multigrid" on
+    # CUDA (PERF.md holds the card's screen of the two).
     preconditioner: str = "auto"
-    # 3D: "auto" (-> "adi" on every device), "adi" (damped z-p-r-p-z line
-    # sweep) or "lines" (additive). "direct" (block-direct) is ROADMAP slice 3.
+    # 3D: "auto", "adi" (damped z-p-r-p-z line sweep), "lines" (additive) or
+    # "direct" (banded-block LDL^T / cyclic reduction, ops/block_direct3d.py,
+    # ops/block_bcr3d.py). "auto" is "direct" on the CPU and "adi" on CUDA.
     precond3d: str = "auto"
+    # Schedule of the direct factorization, 2D and 3D: "scan" = the exact
+    # sequential block-LDL^T chain (NZ dependent steps, and two NZ-step loops
+    # per application); "bcr" = exact block cyclic reduction (log2(NZ) batched
+    # stages for factor and apply, more memory); "fp" = the batched Schur
+    # fixed-point approximation with direct_factor_passes whole-stack
+    # inversions (SPD at any pass count, many more CG iterations on long
+    # grids). "auto" is "bcr" on CUDA and "scan" on the CPU.
+    direct_schedule: str = "auto"
+    # "fp" pass count (None = 8). A value also selects "fp" unless the
+    # schedule is given as "bcr".
+    direct_factor_passes: int | None = None
     # 3D assembly metric: "cylindrical" (the hexes are the exact solid of
     # revolution through the nodes) or "cartesian" (chordal hexes).
     metric3d: str = "cylindrical"
@@ -340,24 +481,28 @@ class Executor:
             )
         auto = {}
         if config.preconditioner == "auto":
-            auto["preconditioner"] = "multigrid"
+            auto["preconditioner"] = "multigrid" if on_cuda else "direct"
         if config.precond3d == "auto":
-            auto["precond3d"] = "adi"
+            auto["precond3d"] = "adi" if on_cuda else "direct"
+        schedule = config.direct_schedule
+        if schedule in ("auto", "scan") and config.direct_factor_passes is not None:
+            schedule = "fp"  # the chain takes no pass count: a count means "fp"
+        elif schedule == "auto":
+            schedule = "bcr" if on_cuda else "scan"
+        # The one place that resolves the schedule: the chunk solves switch on it alone.
+        auto["direct_schedule"] = schedule
         if config.chunk_size is None:
             auto["chunk_size"] = 96 if on_cuda else 48
         if config.device_meshing is None:
             auto["device_meshing"] = on_cuda
         self.config = config = dataclasses.replace(config, **auto)
-        if config.preconditioner not in ("multigrid", "local"):
-            raise NotImplementedError(
-                f"preconditioner {config.preconditioner!r}: the port has "
-                "'multigrid' and 'local'; the block-direct solver is ROADMAP slice 3"
-            )
-        if config.precond3d not in ("adi", "lines"):
-            raise NotImplementedError(
-                f"precond3d {config.precond3d!r}: the port has 'adi' and 'lines'; "
-                "the block-direct 3D solver is ROADMAP slice 3"
-            )
+        for name, value, known in (
+            ("preconditioner", config.preconditioner, ("multigrid", "local", "direct")),
+            ("precond3d", config.precond3d, ("adi", "lines", "direct")),
+            ("direct_schedule", config.direct_schedule, ("scan", "bcr", "fp")),
+        ):
+            if value not in known:
+                raise ValueError(f"{name} {value!r}: use 'auto' or one of {known}")
 
     # ------------------------------------------------------------------- host side
     def prepare_batches(
@@ -401,6 +546,37 @@ class Executor:
 
         return LazyGrids(len(tasks), build_one)
 
+    def _direct_chunk_cap(self, base_chunk: int, grid_shape: tuple) -> int:
+        """Batches per chunk that the direct factorization's memory allows.
+
+        The factorization stores G: NZ blocks of (nodes per line or plane)^2
+        per batch, in the solve's type. The chunk is capped so that G stays
+        within a budget per schedule: the chain ("scan") the whole budget, "fp"
+        half of it (two stacks alive at once), "bcr" 3.5/6 of it (about 1.5x
+        the storage plus its products in flight); never below 2 batches. On
+        the CPU the budgets are the JAX package's 6 / 3 / 3.5 GB, for 3D grids
+        only (its 2D chunks are not capped; it reckons G at 4 bytes whatever
+        the solve's type, the port at the type's size); on CUDA the chain's
+        budget is an eighth of the card's memory, 2D and 3D. On an H100 the
+        peak of allocated memory was 1.2-1.7x the chain's G, and 3.5x (3D) to
+        5.9x (2D) the same G under "bcr" (PERF.md). Other preconditioners: no
+        cap.
+        """
+        cfg = self.config
+        is_3d = len(grid_shape) == 3
+        on_cuda = self.device.type == "cuda"
+        if (cfg.precond3d if is_3d else cfg.preconditioner) != "direct":
+            return base_chunk
+        if not (is_3d or on_cuda):
+            return base_chunk
+        budget = {"scan": 6e9, "fp": 3e9, "bcr": 3.5e9}[cfg.direct_schedule]
+        if on_cuda:
+            total = torch.cuda.get_device_properties(self.device).total_memory
+            budget *= total / 8 / 6e9
+        itemsize = np.dtype(cfg.dtype).itemsize
+        g_bytes_per_batch = grid_shape[0] * int(np.prod(grid_shape[1:])) ** 2 * itemsize
+        return max(2, min(base_chunk, int(budget // g_bytes_per_batch)))
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -424,20 +600,23 @@ class Executor:
         dtype = np.dtype(cfg.dtype).type
         S = max(len(t.solves) for t in tasks)
         B_total = len(tasks)
-        is_3d = isinstance(grids[0], Grid3D)
+        g0 = grids[0]
+        is_3d = isinstance(g0, Grid3D)
+        is_light = isinstance(g0, Grid2DLight)
+        grid_shape = tuple(g0.grid_shape if is_light else g0.coords.shape[:-1])
+        cell_shape = tuple(n - 1 for n in grid_shape)
         # Bound concurrent solves (B*S): the chunk sizes are calibrated for the
         # default batch_size of 5.
-        base = cfg.chunk_size_3d if is_3d else cfg.chunk_size
+        base = self._direct_chunk_cap(
+            cfg.chunk_size_3d if is_3d else cfg.chunk_size, grid_shape)
         chunk = max(1, min(base, max(1, base * 5 // S), B_total))
 
         results = np.full((n_measurements, n_tools), np.nan)
-        g0 = grids[0]
-        is_light = isinstance(g0, Grid2DLight)
-        grid_shape = g0.grid_shape if is_light else g0.coords.shape[:-1]
-        cell_shape = tuple(n - 1 for n in grid_shape)
         self.last_report = {
             "chunks": [], "n_failed_solves": 0, "n_nan_readouts": 0,
-            "chunk": chunk, "n_solve_slots": S,
+            "chunk": chunk, "n_solve_slots": S, "factor_seconds": 0.0,
+            "preconditioner": cfg.precond3d if is_3d else cfg.preconditioner,
+            "direct_schedule": cfg.direct_schedule,
             "use_stencil_kernel": cfg.use_stencil_kernel,
             "device": str(self.device),
         }
@@ -528,29 +707,47 @@ class Executor:
                     *stage_sources(batch_tasks, batch_grids, B)]
 
         def solve(args):
+            timings = {}
             if is_3d:
-                u_axis, rel_res, iters = _solve_chunk_3d(
+                out = _solve_chunk_3d(
                     *args,
                     tol=cfg.tol,
                     maxiter=cfg.maxiter,
                     precond=cfg.precond3d,
                     adi_damp=cfg.adi_damp,
                     use_kernel=cfg.use_stencil_kernel,
+                    schedule=cfg.direct_schedule,
+                    factor_passes=cfg.direct_factor_passes,
                     metric=cfg.metric3d,
+                    timings=timings,
                 )
-                return u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
-            u_axis, rel_res, iters = _solve_chunk(
-                *args,
-                tol=cfg.tol,
-                maxiter=cfg.maxiter,
-                preconditioner=cfg.preconditioner,
-                use_kernel=cfg.use_stencil_kernel,
-                mg_degree=cfg.mg_degree,
-                mg_power_iters=cfg.mg_power_iters,
-                mg_line_steps=cfg.mg_line_steps,
-                mg_smoother=cfg.mg_smoother,
-            )
-            return u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
+            elif cfg.preconditioner == "direct":
+                out = _solve_chunk_direct(
+                    *args,
+                    tol=cfg.tol,
+                    maxiter=cfg.maxiter,
+                    use_kernel=cfg.use_stencil_kernel,
+                    schedule=cfg.direct_schedule,
+                    factor_passes=cfg.direct_factor_passes,
+                    timings=timings,
+                )
+            else:
+                out = _solve_chunk(
+                    *args,
+                    tol=cfg.tol,
+                    maxiter=cfg.maxiter,
+                    preconditioner=cfg.preconditioner,
+                    use_kernel=cfg.use_stencil_kernel,
+                    mg_degree=cfg.mg_degree,
+                    mg_power_iters=cfg.mg_power_iters,
+                    mg_line_steps=cfg.mg_line_steps,
+                    mg_smoother=cfg.mg_smoother,
+                )
+            u_axis, rel_res, iters = out
+            host = u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
+            if "factor" in timings:  # read behind the copies: the device has passed it
+                self.last_report["factor_seconds"] += timings["factor"]()
+            return host
 
         # Chunks are meshed, staged and solved up to ``window`` ahead of the
         # readout point. The CG loop syncs with the device every iteration, so

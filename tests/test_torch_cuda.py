@@ -22,7 +22,9 @@ from remo3d_tpu_torch import Model
 from remo3d_tpu_torch.kernels import stencil2d, stencil3d
 from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
 from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
-from remo3d_tpu_torch.ops.stencil3d import pole_project
+from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d
+from remo3d_tpu_torch.ops.stencil import stencil_apply
+from remo3d_tpu_torch.ops.stencil3d import pole_project, stencil3d_apply
 
 # The last has NZ no multiple of the tile height and NR no multiple of 4.
 SHAPES = [(1, 2, 7, 5), (2, 3, 33, 17), (3, 5, 97, 33), (2, 3, 37, 23)]
@@ -66,7 +68,7 @@ def test_small_log_on_card_matches_cpu(cuda_device):
     borehole = np.array([[-100.0, 0.1, 1.0], [100.0, 0.1, 1.0]])
     kw = dict(borehole_geometry_type="radius", verbose=False, dtype="float64", tol=1e-12,
               grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2),
-              executor_overrides={"device_meshing": True})
+              executor_overrides={"device_meshing": True, "preconditioner": "multigrid"})
     tools, depths = ["A2.0M0.5N", "B5.7A0.4M"], np.array([-0.2, 0.3])
     before = stencil2d.LAUNCHES
     gpu = Model.compute_synthetic_logs(tools, depths, formation, borehole, device="cuda", **kw)
@@ -152,7 +154,8 @@ def test_small_3d_log_on_card_matches_cpu(cuda_device):
     run (plain path) to the CG tolerance, and went through K2."""
     kw = dict(borehole_geometry_type="radius", dip=30, verbose=False, dtype="float64",
               tol=1e-10, grid_spec3d=GridSpec3D(nz=49, np_=9, nr=17, n_wall_cells=3,
-                                                n_blend_cells=2))
+                                                n_blend_cells=2),
+              executor_overrides={"precond3d": "adi"})
     tools, depths = ["A2.0M0.5N", "B5.7A0.4M"], np.array([11.5, 12.5, 13.5])
     before = stencil3d.LAUNCHES
     gpu = Model.compute_synthetic_logs(tools, depths, BM3_FORMATION, BM3_BOREHOLE,
@@ -162,3 +165,106 @@ def test_small_3d_log_on_card_matches_cpu(cuda_device):
                                        device="cpu", **kw)
     for t in tools:
         np.testing.assert_allclose(gpu.logs[t][:, 1], cpu.logs[t][:, 1], rtol=1e-8)
+
+
+def _direct_case(dim, schedule, device, dtype):
+    """(factor(), apply(F), residual(x), b) of a random SPD operator: 2D
+    (2, 3, 65, 33), 3D (2, 3, 17, 5, 9)."""
+    rng = np.random.default_rng(11)
+    if dim == 2:
+        C = torch.as_tensor(random_symmetric_stencil_2d(rng, 2, 65, 33), device=device).to(dtype)
+        b = torch.as_tensor(rng.standard_normal((2, 3, 65, 33)), device=device).to(dtype)
+        if schedule == "bcr":
+            return (lambda: block_bcr.bcr_factor(C), lambda F: block_bcr.bcr_apply(F, b),
+                    lambda x: stencil_apply(C, x) - b, b)
+        return (lambda: block_direct.block_thomas_factor(C),
+                lambda F: block_direct.block_thomas_apply(F, C, b),
+                lambda x: stencil_apply(C, x) - b, b)
+    C = torch.as_tensor(random_symmetric_stencil_3d(rng, 2, 17, 5, 9), device=device).to(dtype)
+    b = torch.as_tensor(rng.standard_normal((2, 3, 17, 5, 9)), device=device).to(dtype)
+    if schedule == "bcr":
+        return (lambda: block_bcr3d.bcr_factor_3d(C, 5, 9),
+                lambda F: block_bcr3d.bcr_apply_3d(F, b, 5, 9),
+                lambda x: stencil3d_apply(C, x) - b, b)
+    return (lambda: block_direct3d.block_thomas_factor_3d(C, 5, 9),
+            lambda F: block_direct3d.block_thomas_apply_3d(F, C, b, 5, 9),
+            lambda x: stencil3d_apply(C, x) - b, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("schedule", ["scan", "bcr"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_direct_apply_on_card_matches_cpu(cuda_device, dim, schedule, dtype, tol):
+    """Factor and apply on the card against the same on the CPU (relative to
+    max|x|), and as an inverse (residual <= 3e-5 of max|b| in float32)."""
+    xs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        factor, apply, residual, b = _direct_case(dim, schedule, device, dtype)
+        x = apply(factor())
+        assert float(residual(x).abs().max()) <= 3e-5 * float(b.abs().max())
+        xs[device.type] = x.cpu()
+    assert float((xs["cuda"] - xs["cpu"]).abs().max()) <= tol * float(xs["cpu"].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["scan", "bcr"])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_direct_solver_ignores_the_callers_tf32(cuda_device, dim, schedule):
+    """With TF32 products switched on by the caller the direct factor and apply
+    give the same result, bit for bit, as with them off, and the caller's
+    setting is unchanged afterwards."""
+    factor, apply, residual, b = _direct_case(dim, schedule, cuda_device, torch.float32)
+    before = torch.get_float32_matmul_precision()
+    out = {}
+    try:
+        for setting in ("highest", "high"):
+            torch.set_float32_matmul_precision(setting)
+            out[setting] = apply(factor())
+            assert torch.get_float32_matmul_precision() == setting
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.equal(out["highest"], out["high"])
+    assert float(residual(out["high"]).abs().max()) <= 3e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,passes", [("scan", None), ("bcr", None), ("fp", 12)])
+def test_small_direct_logs_on_card(cuda_device, schedule, passes):
+    """A small float32 direct log per schedule, 2D (97x33) and 3D (49x9x17):
+    no failed solve, readouts within 2e-4 / 1e-3 of the multigrid / "adi" log
+    on the card, the CG matvec went through K1 / K2, and under an exact factor
+    ("scan", "bcr") CG takes at most 8 iterations per chunk (a factor that has
+    gone wrong still lets CG converge, in tens of iterations)."""
+    formation = np.array([
+        [-100.0, -1.0, np.nan, np.nan, 10.0],
+        [-1.0, 0.5, 0.3, 4.0, 40.0],
+        [0.5, 100.0, np.nan, np.nan, 3.0],
+    ])
+    borehole = np.array([[-100.0, 0.1, 1.0], [100.0, 0.1, 1.0]])
+    direct = {"direct_schedule": schedule, "direct_factor_passes": passes}
+    kw2 = dict(borehole_geometry_type="radius", verbose=False, device="cuda",
+               grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2))
+    kw3 = dict(borehole_geometry_type="radius", dip=30, verbose=False, device="cuda",
+               grid_spec3d=GridSpec3D(nz=49, np_=9, nr=17, n_wall_cells=3, n_blend_cells=2))
+    tools = ["A2.0M0.5N", "B5.7A0.4M"]
+    cases = (
+        (stencil2d, np.array([-0.2, 0.3]), formation, borehole, kw2, "preconditioner",
+         "multigrid", 2e-4),
+        (stencil3d, np.array([11.5, 12.5, 13.5]), BM3_FORMATION, BM3_BOREHOLE, kw3, "precond3d",
+         "adi", 1e-3),
+    )
+    for kernel, depths, form, bore, kw, key, iterative, rtol in cases:
+        ref = Model.compute_synthetic_logs(tools, depths, form, bore,
+                                           executor_overrides={key: iterative}, **kw)
+        before = kernel.LAUNCHES
+        log = Model.compute_synthetic_logs(tools, depths, form, bore,
+                                           executor_overrides={key: "direct", **direct}, **kw)
+        per_chunk = [c["iterations"] for c in log.last_report["chunks"]]
+        iters = sum(per_chunk)
+        assert kernel.LAUNCHES - before >= iters > 0
+        assert schedule == "fp" or max(per_chunk) <= 8
+        assert log.last_report["n_failed_solves"] == 0
+        assert log.last_report["factor_seconds"] > 0
+        for t in tools:
+            np.testing.assert_allclose(log.logs[t][:, 1], ref.logs[t][:, 1], rtol=rtol)

@@ -2,9 +2,10 @@
 """The 3D slice as a whole: the port's ``Model`` against ``remo3d_tpu.Model``
 on the CPU at dip 30, Benchmark model 3's stack (10 | 100 | 10 ohm-m, beds
 crossing the axis at 10.77 and 14.23 m), 2 tools x 3 depths through the bed, on
-a 49x5x17 grid, both through the ADI line-preconditioned CG (the JAX package's
-CPU default is its block-direct solver, so both sides ask for "adi"; its
-native C++ mesher is switched off so both mesh with numpy).
+a 49x5x17 grid, both through the ADI line-preconditioned CG (the CPU default of
+both packages is the block-direct solver, tests/test_torch_model_direct.py, so
+both sides ask for "adi"; the JAX package's native C++ mesher is switched off
+so both mesh with numpy).
 
 float32 readouts agree within 2e-4 relative (two CG solves stopped at tol 1e-5
 in float32 that sum in different orders). The float64 case is
@@ -96,6 +97,6 @@ def test_3d_options_raise():
     m.initialize_workers()
     with pytest.raises(ValueError, match="only mesh generator supported in 3D"):
         m.simulate_logs(DEPTHS, device="cpu", verbose=False, mesh_generator="netgen")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="precond3d 'ilu'"):
         m.simulate_logs(DEPTHS, device="cpu", verbose=False,
-                        executor_overrides={"precond3d": "direct"})
+                        executor_overrides={"precond3d": "ilu"})
