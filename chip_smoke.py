@@ -43,12 +43,31 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     card and on the CPU agree;
 15. the TF32 guard: with TF32 products switched on by the caller, the direct
     factor and apply give the same result as with them off, and the caller's
-    setting is unchanged afterwards.
+    setting is unchanged afterwards;
+16. K1 and K2 under autograd: the gradients of a random projection of each
+    kernel's output (``grad_u``, ``grad_C_half``) against autograd of the plain
+    versions at the main shapes (K2 with and without the pole tie) and a
+    ragged one, ``torch.autograd.gradcheck`` (reverse and forward mode) in
+    float64 at tiny shapes, the kernel output's ``grad_fn``, and the time of
+    the coefficient contraction beside its bound;
+17. the 2D differentiable forward at full width: ``DifferentiableLog`` of this
+    script's formation (10 parameters), two tools, 25 depths on the default
+    761x161 grid in chunks of 8, against the card's direct-preconditioned
+    ``Model`` log; reverse mode against forward mode (the Jacobian), central
+    finite differences on the two most sensitive parameters; K1's launches
+    counted around the forward, the backward and the Jacobian;
+18. the same in 3D: a dipping invaded bed (dip 30, 4 parameters), 13 depths on
+    the default 193x17x49 grid, against the card's ``precond3d="direct"`` log;
+    K2's launches;
+19. the card against the CPU (forward and Jacobian of the 2D log on a 193x41
+    grid), then a Levenberg-Marquardt inversion of the 3D log on a 49x7x21
+    grid, which must recover the 4 resistivities.
 
 The line before the last is a JSON object with one entry per kernel; the last
 is ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone.
+``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone, and
+``python3 chip_smoke.py --diff`` phases 16-19.
 ``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
 one warm phase-8 log with torch.profiler: kernel time by part and the device
 busy share (the union of kernel intervals over the wall).
@@ -150,6 +169,29 @@ DIRECT_F64_REL = 1e-8
 # iterations, each with two NZ-step sweeps), and its pass counts.
 N_FP_DEPTHS = 10
 FP_PASSES = {"2D": 32, "3D": 8}
+# The differentiable forward (phases 17-19). 2D: this script's formation, the
+# tools and depths of examples/Example_04_inversion.py; 3D: the dipping invaded
+# bed of examples/Example_05_dip_inversion.py.
+DIFF_TOOLS = ["A2.0M0.5N", "B5.7A0.4M"]
+DIFF_DEPTHS = np.arange(0.5, 24.6, 1.0)
+DIFF_FORMATION_3D = np.array(
+    [
+        [-1000.0, 1.0, np.nan, np.nan, 10.0],
+        [1.0, 2.2, 0.4, 5.0, 100.0],
+        [2.2, 1000.0, np.nan, np.nan, 10.0],
+    ]
+)
+DIFF_BOREHOLE_3D = np.array([[-1000.0, 0.1, 1.0], [1000.0, 0.1, 1.0]])
+DIFF_TOOL_3D = "A0.4M0.1N"
+DIFF_DEPTHS_3D = np.arange(0.4, 2.81, 0.2)
+# The JAX package's own bounds (tests/test_diff.py): forward against the
+# direct-preconditioned Model log 5e-4 (2D) and 1e-4 (3D), reverse against
+# forward mode 2e-3 of scale, finite differences 5% (2D) and 1% (3D); card
+# against CPU 2e-4 (forward) and 2e-3 of scale (Jacobian).
+DIFF_FORWARD_REL = {"2D": 5e-4, "3D": 1e-4}
+DIFF_REV_FWD = 2e-3
+DIFF_FD = {"2D": 0.05, "3D": 0.01}
+DIFF_CPU_REL, DIFF_CPU_JAC = 2e-4, 2e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 / float64 flop/s
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -965,6 +1007,285 @@ def run_screen(torch, card):
     return rows
 
 
+def check_autograd(torch):
+    """Phase 16: K1 and K2 under autograd. Returns {kernel: {"contraction_ms",
+    "contraction_bound_ms"}} at the main shapes."""
+    from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+
+    rng = np.random.default_rng(16)
+    cases = [
+        ("K1", KERNEL_SHAPES[0], None), ("K1", KERNEL_SHAPES[3], None),
+        ("K2", KERNEL3D_SHAPES[0], False), ("K2", KERNEL3D_SHAPES[0], True),
+        ("K2", KERNEL3D_SHAPES[3], False), ("K2", KERNEL3D_SHAPES[3], True),
+    ]
+    out = {}
+    for label, shape, pole in cases:
+        B, S = shape[:2]
+        if label == "K1":
+            C = stencil2d.half_planes_2d(torch.as_tensor(
+                random_symmetric_stencil_2d(rng, B, *shape[2:]), device="cuda").float())
+            kernel = stencil2d.stencil_apply_half_2d
+            plain = stencil2d.stencil_apply_half_2d_plain
+            contraction = stencil2d.stencil_half_coeff_grad_2d
+        else:
+            C = stencil3d.half_planes_3d(torch.as_tensor(
+                random_symmetric_stencil_3d(rng, B, *shape[2:]), device="cuda").float())
+            kernel = lambda C, u, pole=pole: stencil3d.stencil3d_apply_half(C, u, pole)  # noqa: E731
+            plain = lambda C, u, pole=pole: stencil3d.stencil3d_apply_half_plain(C, u, pole)  # noqa: E731
+            contraction = lambda g, u, pole=pole: stencil3d.stencil_half_coeff_grad_3d(g, u, pole)  # noqa: E731
+        C.requires_grad_(True)
+        u = torch.randn(shape, device="cuda", requires_grad=True)
+        g = torch.randn(shape, device="cuda")
+        reset_counts()
+        y = kernel(C, u)
+        if not (y.requires_grad and y.grad_fn is not None):
+            raise AssertionError(f"{label} {shape}: the kernel output has no grad_fn")
+        grads = torch.autograd.grad((y * g).sum(), (C, u))
+        launches = sum(read_counts().values())
+        refs = torch.autograd.grad((plain(C, u) * g).sum(), (C, u))
+        errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(grads, refs)]
+        log(f"autograd {label} {shape} pole={pole}: grad_C_half {errs[0]:.3e}, grad_u "
+            f"{errs[1]:.3e} relative to max|grad| against autograd of the plain version "
+            f"(tolerance {TOL_REL['float32']:g}); {launches} launches for the apply and "
+            f"its backward")
+        if not (max(errs) <= TOL_REL["float32"] and launches == 2):
+            raise AssertionError(f"autograd {label} {shape}: {errs}, {launches} launches")
+        if shape in (KERNEL_SHAPES[0], KERNEL3D_SHAPES[0]) and pole is not True:
+            gd, ud = g.detach(), u.detach()
+            for _ in range(3):
+                contraction(gd, ud)
+            ms = float(np.median([time_ms(torch, lambda: contraction(gd, ud)) for _ in range(25)]))
+            n_half = C.shape[1]
+            n_nodes = math.prod(shape[2:])
+            n_bytes = 4.0 * B * n_nodes * (2 * S + n_half)
+            b_ms, b_by = bound_ms(n_bytes, 4.0 * B * S * n_nodes * n_half, "float32")
+            out[label] = {"contraction_ms": ms, "contraction_bound_ms": b_ms}
+            log(f"autograd {label} {shape}: coefficient contraction {ms:.4f} ms (median of 25), "
+                f"bound {b_ms:.4f} ms by {b_by} ({n_bytes / 1e6:.1f} MB)")
+        del C, u, g, y, grads, refs
+    for shape, fn in (
+        ((1, 2, 7, 5), lambda C, u: stencil2d.stencil_apply_half_2d(C, u)),
+        ((1, 2, 6, 3, 5), lambda C, u: stencil3d.stencil3d_apply_half(C, u, False)),
+        ((1, 2, 6, 3, 5), lambda C, u: stencil3d.stencil3d_apply_half(C, u, True)),
+    ):
+        if len(shape) == 4:
+            C = stencil2d.half_planes_2d(torch.as_tensor(
+                random_symmetric_stencil_2d(rng, 1, *shape[2:]), device="cuda"))
+        else:
+            C = stencil3d.half_planes_3d(torch.as_tensor(
+                random_symmetric_stencil_3d(rng, 1, *shape[2:]), device="cuda"))
+        C.requires_grad_(True)
+        u = torch.randn(shape, device="cuda", dtype=torch.float64, requires_grad=True)
+        ok = torch.autograd.gradcheck(fn, (C, u), check_forward_ad=True)
+        log(f"autograd gradcheck float64 {shape}: {'passed' if ok else 'FAILED'} (reverse and "
+            f"forward mode)")
+        if not ok:
+            raise AssertionError(f"gradcheck {shape} failed")
+    torch.cuda.empty_cache()
+    return out
+
+
+def diff_measure(torch, fn):
+    """Run ``fn`` with the kernels' counts set to 0 just before and read just
+    after: (result, wall seconds, launches, peak allocated bytes)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return result, wall, read_counts(), torch.cuda.max_memory_allocated()
+
+
+def diff_seconds(dlog) -> str:
+    """The last call's seconds of assembly, factorization and solves, summed
+    over its chunks (CUDA events)."""
+    chunks = dlog.last_report["chunks"]
+    return ", ".join(f"{key[:-2]} {sum(c[key] for c in chunks):.3f} s"
+                     for key in ("assembly_s", "factor_s", "solve_s"))
+
+
+def diff_run(torch, card, dim, dlog, ref, kernel, fd_params):
+    """Phases 17 and 18 on one DifferentiableLog: forward against the Model log
+    ``ref``, reverse against forward mode, finite differences on
+    ``fd_params`` (None = the two most sensitive). Returns the launches of
+    ``kernel`` in the forward, the backward and the Jacobian."""
+    p0 = np.asarray(dlog.params0, dtype=np.float64)
+    wall_f0 = diff_measure(torch, lambda: dlog.forward(p0))[1]  # the first call warms up
+    out, wall_f, n_f, mem_f = diff_measure(torch, lambda: dlog.forward(p0))
+    it_f = [c["iterations"] for c in dlog.last_report["chunks"]]
+    vals = out.cpu().numpy()
+    rel = float(np.nanmax(np.abs(vals / ref - 1)))
+    log(f"diff {dim} on {card}: forward {wall_f:.3f} s (first call {wall_f0:.3f} s), CG "
+        f"iterations {it_f}, launches {n_f}, peak memory {mem_f / 1e9:.3f} GB, "
+        f"{diff_seconds(dlog)}; against the direct Model log {rel:.3e} (limit "
+        f"{DIFF_FORWARD_REL[dim]:g})")
+    if not (np.isfinite(vals).all() and rel <= DIFF_FORWARD_REL[dim]):
+        raise AssertionError(f"diff {dim}: forward vs Model {rel:.3e}")
+
+    rng = np.random.default_rng(3)
+    w = torch.as_tensor(rng.standard_normal(vals.shape), device="cuda", dtype=torch.float32)
+    p = torch.tensor(p0, device="cuda", dtype=torch.float32, requires_grad=True)
+
+    def taped():
+        logs = dlog(p)
+        return torch.where(torch.isnan(logs), 0.0, logs * w).sum()
+
+    loss, wall_r, n_r, mem_r = diff_measure(torch, taped)
+    seconds_r = diff_seconds(dlog)
+    (g_rev,), wall_b, n_b, mem_b = diff_measure(torch, lambda: torch.autograd.grad(loss, p))
+    it_b = [c.get("adjoint_iterations") for c in dlog.last_report["chunks"]]
+    del loss
+
+    wall_j0 = diff_measure(torch, lambda: dlog.jacobian(p0))[1]  # the first call warms up
+    J, wall_j, n_j, mem_j = diff_measure(torch, lambda: dlog.jacobian(p0))
+    it_j = [c["tangent_iterations"] for c in dlog.last_report["chunks"]]
+    seconds_j = diff_seconds(dlog)
+    J = J.cpu().numpy()
+    g_fwd = np.einsum("mtp,mt->p", J, w.cpu().numpy())
+    scale = float(np.abs(g_fwd).max())
+    err = float(np.abs(g_rev.cpu().numpy() - g_fwd).max())
+    log(f"diff {dim} on {card}: taped forward {wall_r:.3f} s (launches {n_r}, peak memory "
+        f"{mem_r / 1e9:.3f} GB, {seconds_r}), backward {wall_b:.3f} s (adjoint "
+        f"CG iterations {it_b}, launches {n_b}, peak memory {mem_b / 1e9:.3f} GB); Jacobian "
+        f"{tuple(J.shape)} {wall_j:.3f} s (first call {wall_j0:.3f} s; tangent CG iterations "
+        f"{it_j}, launches {n_j}, peak memory {mem_j / 1e9:.3f} GB, {seconds_j}); reverse vs "
+        f"forward mode {err / scale:.3e} of scale "
+        f"(limit {DIFF_REV_FWD:g})")
+    if not (scale > 0 and err <= DIFF_REV_FWD * scale):
+        raise AssertionError(f"diff {dim}: reverse vs forward mode {err:.3e}, scale {scale:.3e}")
+
+    if fd_params is None:
+        fd_params = [int(k) for k in np.argsort(np.abs(J).sum(axis=(0, 1)))[-2:]]
+    for k in fd_params:
+        h = 0.02 * p0[k]
+        pp, pm = p0.copy(), p0.copy()
+        pp[k] += h
+        pm[k] -= h
+        fd = (np.nan_to_num(dlog.forward(pp).cpu().numpy())
+              - np.nan_to_num(dlog.forward(pm).cpu().numpy())) / (2 * h)
+        fd_scale = float(np.abs(fd).max())
+        fd_err = float(np.max(np.abs(J[:, :, k] - fd) - DIFF_FD[dim] * np.abs(fd)))
+        log(f"diff {dim}: finite differences on {dlog.param_names[k]}: max|J - fd| "
+            f"{float(np.abs(J[:, :, k] - fd).max()):.3e}, scale {fd_scale:.3e} (limit "
+            f"{DIFF_FD[dim]:g} of scale + {DIFF_FD[dim]:g} of |fd|)")
+        if not (fd_scale > 0 and fd_err <= DIFF_FD[dim] * fd_scale):
+            raise AssertionError(f"diff {dim}: finite differences on parameter {k}")
+    launches = {"forward": n_f[kernel], "backward": n_b[kernel], "jacobian": n_j[kernel]}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"diff {dim}: {kernel} launches {launches}")
+    torch.cuda.empty_cache()
+    return {f"launches_diff_{key}": n for key, n in launches.items()}
+
+
+def diff_2d(torch, card):
+    """Phase 17: the 2D differentiable forward at full width."""
+    from remo3d_tpu_torch import DifferentiableLog, Model
+
+    model = Model(DIFF_TOOLS)
+    model.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
+    model.simulate_logs(DIFF_DEPTHS, preconditioner="direct", device="cuda", verbose=False,
+                        executor_overrides={"chunk_size": 8, "device_meshing": False})
+    ref = np.stack([model.logs[t][:, 1] for t in DIFF_TOOLS], axis=1)
+    dlog = DifferentiableLog(model, DIFF_DEPTHS, chunk_size=8, device="cuda")
+    log(f"diff 2D: {len(dlog.params0)} parameters {dlog.param_names}, "
+        f"{dlog._stacked['coords'].shape[:2]} (chunks, batches per chunk), schedule "
+        f"{dlog.direct_schedule}")
+    return diff_run(torch, card, "2D", dlog, ref, "stencil2d_half", None)
+
+
+def diff_3d(torch, card):
+    """Phase 18: the 3D differentiable forward at full width."""
+    from remo3d_tpu_torch import DifferentiableLog, Model
+    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
+
+    model = Model([DIFF_TOOL_3D])
+    model.set_model_parameters(DIFF_FORMATION_3D, DIFF_BOREHOLE_3D,
+                               borehole_geometry_type="radius", dip=DIP)
+    model.simulate_logs(DIFF_DEPTHS_3D, domain_radius=10.0, device="cuda", verbose=False,
+                        grid_spec3d=GridSpec3D(), executor_overrides={"precond3d": "direct"})
+    ref = model.logs[DIFF_TOOL_3D][:, 1:2]
+    dlog = DifferentiableLog(model, DIFF_DEPTHS_3D, grid_spec3d=GridSpec3D(), domain_radius=10.0,
+                             chunk_size=8, device="cuda")
+    log(f"diff 3D: {len(dlog.params0)} parameters {dlog.param_names}, "
+        f"{dlog._stacked['coords'].shape[:2]} (chunks, batches per chunk), schedule "
+        f"{dlog.direct_schedule}")
+    return diff_run(torch, card, "3D", dlog, ref, "stencil3d_half", (0, 3))
+
+
+def diff_cpu_and_inversion(torch, card):
+    """Phase 19: forward and Jacobian of the 2D log on a 193x41 grid, card
+    against CPU; then the Levenberg-Marquardt loop of
+    examples/Example_05_dip_inversion.py on its 49x7x21 grid, on the card."""
+    from remo3d_tpu_torch import DifferentiableLog, Model
+    from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
+    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
+
+    model = Model(DIFF_TOOLS)
+    model.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
+    spec = GridSpec2D(nz=193, nr=41, n_wall_cells=6, n_blend_cells=3)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        dlog = DifferentiableLog(model, DIFF_DEPTHS, grid_spec=spec, chunk_size=8, device=device)
+        t0 = time.perf_counter()
+        runs[device] = [dlog.forward(dlog.params0).cpu().numpy(),
+                        dlog.jacobian(dlog.params0).cpu().numpy(), time.perf_counter() - t0]
+    rel = float(np.nanmax(np.abs(runs["cuda"][0] / runs["cpu"][0] - 1)))
+    jac = float(np.abs(runs["cuda"][1] - runs["cpu"][1]).max() / np.abs(runs["cpu"][1]).max())
+    log(f"diff card vs CPU, 2D 193x41: forward {rel:.3e} (limit {DIFF_CPU_REL:g}), Jacobian "
+        f"{jac:.3e} of scale (limit {DIFF_CPU_JAC:g}); forward + Jacobian {runs['cuda'][2]:.3f} s "
+        f"on the card, {runs['cpu'][2]:.3f} s on the CPU")
+    if not (rel <= DIFF_CPU_REL and jac <= DIFF_CPU_JAC):
+        raise AssertionError(f"diff card vs CPU: {rel:.3e}, {jac:.3e}")
+
+    model = Model([DIFF_TOOL_3D])
+    model.set_model_parameters(DIFF_FORMATION_3D, DIFF_BOREHOLE_3D,
+                               borehole_geometry_type="radius", dip=DIP)
+    dlog = DifferentiableLog(
+        model, DIFF_DEPTHS_3D, grid_spec3d=GridSpec3D(nz=49, np_=7, nr=21, n_wall_cells=3,
+                                                      n_blend_cells=2),
+        domain_radius=10.0, chunk_size=4, device="cuda")
+    p_true = np.asarray(dlog.params0, dtype=np.float64)
+    obs = dlog.forward(p_true).cpu().numpy()
+    mask = np.isfinite(obs)
+    # Levenberg-Marquardt in log-resistivity space, as the example runs it.
+    x = np.log(np.full_like(p_true, 20.0))
+    lam, misfit_prev, misfit = 1e-2, np.inf, np.inf
+    t0 = time.perf_counter()
+    for it in range(15):
+        p = np.exp(x)
+        sim = np.nan_to_num(dlog.forward(p).cpu().numpy())
+        J = np.nan_to_num(dlog.jacobian(p).cpu().numpy())
+        r = (np.log(sim[mask]) - np.log(obs[mask])).astype(np.float64)
+        A = (J * p[None, None, :])[mask] / sim[mask][:, None]
+        misfit = float(np.sqrt(np.mean(r**2)))
+        log(f"diff inversion iter {it:2d}: rms log-misfit {misfit:.5f}, max parameter error "
+            f"{np.abs(p / p_true - 1).max() * 100:6.2f}%")
+        if misfit < 1e-4:
+            break
+        lam = max(lam * (0.3 if misfit < misfit_prev else 10.0), 1e-6)
+        misfit_prev = misfit
+        H = A.T @ A + lam * np.eye(A.shape[1])
+        x = x - np.linalg.solve(H, A.T @ r)
+    worst = float(np.abs(np.exp(x) / p_true - 1).max())
+    log(f"diff inversion on {card}: {it + 1} iterations in {time.perf_counter() - t0:.3f} s, "
+        f"rms log-misfit {misfit:.2e}, worst parameter error {worst:.3%} (limit 0.1%)")
+    if not (misfit < 1e-4 and worst < 1e-3):
+        raise AssertionError(f"diff inversion: misfit {misfit:.2e}, worst error {worst:.3%}")
+
+
+def run_diff(torch, card):
+    """Phases 16-19; returns ({kernel: phase 16's timings}, {kernel: launches})."""
+    timings = check_autograd(torch)
+    launches = {"stencil2d_half": diff_2d(torch, card)}
+    launches["stencil3d_half"] = diff_3d(torch, card)
+    diff_cpu_and_inversion(torch, card)
+    return timings, launches
+
+
 def probe(torch, card):
     """K2 at its main shape, float32, beside its three probe builds: 20
     interleaved rounds, median per build. The probe builds compute wrong
@@ -1212,6 +1533,11 @@ def main() -> int:
         log(card)
         print(json.dumps({"screen": rows}))
         return 0
+    if sys.argv[1:] == ["--diff"]:
+        timings, launches = run_diff(torch, card)
+        log(card)
+        print(json.dumps({"diff": {"contraction": timings, "launches": launches}}))
+        return 0
     if sys.argv[1:] == ["--profile3d"]:
         profile_3d(torch, card)
         return 0
@@ -1246,6 +1572,11 @@ def main() -> int:
             row = next(r for r in rows
                        if r["dim"] == dim and r["preconditioner"] == f"direct-{schedule}")
             k[f"launches_direct_{schedule}"] = row["launches"][name]
+    timings, launches = run_diff(torch, card)  # 16-19
+    log(f"diff done at {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"contraction": timings}))
+    k1.update(launches["stencil2d_half"])
+    k2.update(launches["stencil3d_half"])
 
     main_info = {
         "stencil2d_half": info["K1 float32 S=5 NR=161"],

@@ -5,12 +5,14 @@ Forward modeling of normal and lateral resistivity logs: the same ``Model`` API
 as the JAX package. Dip 0 runs the 2D axisymmetric solver (batched multigrid
 PCG), a dip the 3D dipping-layer solver (ADI line-preconditioned PCG), in torch
 on one device. The 9-point and 27-point stencil applies are hand-written CUDA
-kernels for Hopper (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``). Imports
-torch and numpy, never JAX.
+kernels for Hopper (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``), with their
+gradients. ``DifferentiableLog`` exposes a log as a differentiable torch
+function of the formation resistivities. Imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"
 
+from .diff import DifferentiableLog  # noqa: F401,E402
 from .model import Model  # noqa: F401,E402
 
-__all__ = ["Model"]
+__all__ = ["DifferentiableLog", "Model"]

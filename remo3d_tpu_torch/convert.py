@@ -7,7 +7,8 @@ they are) and the per-chunk staged arrays of the chunk solve, which these
 helpers turn into the port's tensors so both packages can be fed identical
 inputs; and the factorizations of the block-direct solvers, whose layouts are
 the same in both packages, so that either package's apply can take the
-other's factor.
+other's factor; and the staged chunk plan of the differentiable forward
+(``DifferentiableLog._stacked``).
 """
 
 from __future__ import annotations
@@ -36,6 +37,28 @@ def chunk_to_torch(arrays, device, dtype):
         put(src_i, torch.int64),
         put(src_fac, dtype),
     )
+
+
+def chunk_plan_to_torch(stacked, device):
+    """The stacked chunk plan of a ``DifferentiableLog`` (a dict of arrays with
+    a leading chunk axis, ``remo3d_tpu.diff.DifferentiableLog._stacked`` as
+    numpy or JAX arrays, or the port's own) -> a dict of tensors on ``device``,
+    as the port's ``DifferentiableLog`` holds them.
+
+    Integer arrays become int64 (torch's gather index type), bool masks stay
+    bool, floating arrays float32 (the type the differentiable forward solves
+    in, as the JAX package's).
+    """
+    out = {}
+    for name, a in stacked.items():
+        a = np.array(a)  # a writable, contiguous copy
+        if a.dtype.kind in "iu":
+            out[name] = torch.from_numpy(a.astype(np.int64)).to(device)
+        elif a.dtype == bool:
+            out[name] = torch.from_numpy(a).to(device)
+        else:
+            out[name] = torch.from_numpy(a).to(device=device, dtype=torch.float32)
+    return out
 
 
 def stencil_to_torch(C, device, dtype):

@@ -16,6 +16,12 @@ memory and keeps a node's 9 coefficients in registers across the S solves.
 :func:`stencil_apply_half_2d` sends a tensor that lies on the CPU to
 :func:`stencil_apply_half_2d_plain`; any other tensor launches the kernel or
 raises. There is no fallback from a failed build or launch.
+
+Every call goes through :class:`StencilApplyHalf2D`, so a kernel result carries
+its gradient: the operator is symmetric, so ``grad_u`` is the same kernel on the
+output's cotangent, and ``grad_C_half`` is the coefficient contraction
+:func:`stencil_half_coeff_grad_2d` (plain torch, as XLA differentiates the
+JAX package's apply).
 """
 
 from __future__ import annotations
@@ -89,15 +95,8 @@ def kernel_info(
     return build.kernel_info(_INFO_ENTRY[dtype], S, nr, tile_rows)
 
 
-def stencil_apply_half_2d(
-    C_half: torch.Tensor, u: torch.Tensor, tile_rows: int = 0
-) -> torch.Tensor:
-    """y = A u from half storage: plain torch for CPU tensors, else the kernel.
-
-    C_half: (B, 5, NZ, NR) from :func:`half_planes_2d`; u: (B, S, NZ, NR).
-    ``tile_rows`` forces the kernel's rows per block (a tuning sweep's knob; 0
-    is the kernel's own choice and what every caller uses).
-    """
+def _apply(C_half: torch.Tensor, u: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """The plain version for CPU tensors, else one kernel launch (no autograd)."""
     global LAUNCHES
     if u.device.type == "cpu" and C_half.device.type == "cpu":
         return stencil_apply_half_2d_plain(C_half, u)
@@ -116,3 +115,73 @@ def stencil_apply_half_2d(
         raise RuntimeError(f"stencil2d_half launch failed: CUDA error {err}")
     LAUNCHES += 1
     return y
+
+
+def stencil_half_coeff_grad_2d(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """d<g, A u>/dC_half, summed over the solve axis: (B, 5, NZ, NR).
+
+    Diagonal plane: sum_s g(n) u(n); offset d: sum_s [g(n) u(n+d) + g(n+d) u(n)]
+    where n and n+d lie on the grid, zero elsewhere (the apply never reads those
+    coefficients).
+    """
+    nz, nr = u.shape[-2], u.shape[-1]
+    out = u.new_zeros((u.shape[0], 5, nz, nr))
+    out[:, 0] = (g * u).sum(1)
+    for k, (dz, dr) in enumerate(POS_OFFSETS_2D):
+        (zd, zs), (rd, rs) = _window(dz, nz), _window(dr, nr)
+        out[:, k + 1, zd, rd] = (
+            g[..., zd, rd] * u[..., zs, rs] + g[..., zs, rs] * u[..., zd, rd]
+        ).sum(1)
+    return out
+
+
+class StencilApplyHalf2D(torch.autograd.Function):
+    """y = A u (:func:`_apply`: K1 or, on the CPU, its plain version) with both
+    derivatives: reverse (``grad_u`` = K1 on the cotangent, A being symmetric;
+    ``grad_C_half`` by :func:`stencil_half_coeff_grad_2d`) and forward
+    (``dy = A(dC_half) u + A(C_half) du``, two launches)."""
+
+    @staticmethod
+    def forward(C_half, u, tile_rows):
+        return _apply(C_half, u, tile_rows)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        C_half, u, _ = inputs
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(C_half, u)
+        ctx.save_for_forward(C_half, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None, None
+        C_half, u = ctx.saved_tensors
+        g = g.contiguous()
+        grad_C = stencil_half_coeff_grad_2d(g, u) if ctx.needs_input_grad[0] else None
+        grad_u = StencilApplyHalf2D.apply(C_half, g, 0) if ctx.needs_input_grad[1] else None
+        return grad_C, grad_u, None
+
+    @staticmethod
+    def jvp(ctx, dC_half, du, _):
+        C_half, u = ctx.saved_tensors
+        dy = None
+        if dC_half is not None:
+            dy = _apply(dC_half.contiguous(), u, 0)
+        if du is not None:
+            y_u = _apply(C_half, du.contiguous(), 0)
+            dy = y_u if dy is None else dy + y_u
+        return dy if dy is not None else torch.zeros_like(u)
+
+
+def stencil_apply_half_2d(
+    C_half: torch.Tensor, u: torch.Tensor, tile_rows: int = 0
+) -> torch.Tensor:
+    """y = A u from half storage: plain torch for CPU tensors, else the kernel;
+    differentiable in both arguments (:class:`StencilApplyHalf2D`).
+
+    C_half: (B, 5, NZ, NR) from :func:`half_planes_2d`; u: (B, S, NZ, NR).
+    ``tile_rows`` forces the kernel's rows per block (a tuning sweep's knob; 0
+    is the kernel's own choice and what every caller uses).
+    """
+    return StencilApplyHalf2D.apply(C_half, u, tile_rows)

@@ -24,6 +24,13 @@ two agree to 1e-6 of max|y| in float32 and 1e-13 in float64.
 :func:`stencil3d_apply_half` sends a tensor that lies on the CPU to
 :func:`stencil3d_apply_half_plain`; any other tensor launches the kernel or
 raises. There is no fallback from a failed build or launch.
+
+Every call goes through :class:`StencilApplyHalf3D`, so a kernel result carries
+its gradient: the operator, and with ``pole`` also ``P A P`` (the projector is
+orthogonal), is symmetric, so ``grad_u`` is the same kernel on the output's
+cotangent, and ``grad_C_half`` is the coefficient contraction
+:func:`stencil_half_coeff_grad_3d` (plain torch, as XLA differentiates the JAX
+package's apply), taken on ``P g`` and ``P u`` with ``pole``.
 """
 
 from __future__ import annotations
@@ -106,16 +113,8 @@ def kernel_info(
     return build.kernel_info(_INFO_ENTRY[dtype], S, np_, nr, tile_rows)
 
 
-def stencil3d_apply_half(
-    C_half: torch.Tensor, u: torch.Tensor, pole: bool = False, tile_rows: int = 0
-) -> torch.Tensor:
-    """y = A u from half storage: plain torch for CPU tensors, else the kernel.
-
-    C_half: (B, 14, NZ, NP, NR) from :func:`half_planes_3d`; u: (B, S, NZ, NP, NR).
-    With ``pole`` the result is ``pole_project(A pole_project(u))``; u itself is
-    not modified. ``tile_rows`` forces the kernel's planes per block (a tuning
-    sweep's knob; 0 is the kernel's own choice and what every caller uses).
-    """
+def _apply(C_half: torch.Tensor, u: torch.Tensor, pole: bool, tile_rows: int) -> torch.Tensor:
+    """The plain version for CPU tensors, else one kernel launch (no autograd)."""
     global LAUNCHES
     if u.device.type == "cpu" and C_half.device.type == "cpu":
         return stencil3d_apply_half_plain(C_half, u, pole)
@@ -135,3 +134,81 @@ def stencil3d_apply_half(
         raise RuntimeError(f"stencil3d_half launch failed: CUDA error {err}")
     LAUNCHES += 1
     return y
+
+
+def stencil_half_coeff_grad_3d(g: torch.Tensor, u: torch.Tensor, pole: bool = False) -> torch.Tensor:
+    """d<g, A u>/dC_half (with ``pole``: d<g, P A P u>/dC_half), summed over the
+    solve axis: (B, 14, NZ, NP, NR).
+
+    Diagonal plane: sum_s g(n) u(n); offset d: sum_s [g(n) u(n+d) + g(n+d) u(n)]
+    where n and n+d lie on the grid, zero elsewhere; with ``pole`` on P g and P u.
+    """
+    if pole:
+        g, u = pole_project(g), pole_project(u)
+    nz, np_, nr = u.shape[-3], u.shape[-2], u.shape[-1]
+    out = u.new_zeros((u.shape[0], 14, nz, np_, nr))
+    out[:, 0] = (g * u).sum(1)
+    for k, (dz, dp, dr) in enumerate(POS_OFFSETS):
+        (zd, zs), (pd, ps), (rd, rs) = _window(dz, nz), _window(dp, np_), _window(dr, nr)
+        out[:, k + 1, zd, pd, rd] = (
+            g[..., zd, pd, rd] * u[..., zs, ps, rs] + g[..., zs, ps, rs] * u[..., zd, pd, rd]
+        ).sum(1)
+    return out
+
+
+class StencilApplyHalf3D(torch.autograd.Function):
+    """y = A u or P A P u (:func:`_apply`: K2 or, on the CPU, its plain version)
+    with both derivatives: reverse (``grad_u`` = K2 on the cotangent, the
+    operator being symmetric; ``grad_C_half`` by
+    :func:`stencil_half_coeff_grad_3d`) and forward (``dy = K(dC_half, u) +
+    K(C_half, du)``, two launches)."""
+
+    @staticmethod
+    def forward(C_half, u, pole, tile_rows):
+        return _apply(C_half, u, pole, tile_rows)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        C_half, u, pole, _ = inputs
+        ctx.pole = pole
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(C_half, u)
+        ctx.save_for_forward(C_half, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None, None, None
+        C_half, u = ctx.saved_tensors
+        g = g.contiguous()
+        grad_C = grad_u = None
+        if ctx.needs_input_grad[0]:
+            grad_C = stencil_half_coeff_grad_3d(g, u, ctx.pole)
+        if ctx.needs_input_grad[1]:
+            grad_u = StencilApplyHalf3D.apply(C_half, g, ctx.pole, 0)
+        return grad_C, grad_u, None, None
+
+    @staticmethod
+    def jvp(ctx, dC_half, du, _pole, _tile_rows):
+        C_half, u = ctx.saved_tensors
+        dy = None
+        if dC_half is not None:
+            dy = _apply(dC_half.contiguous(), u, ctx.pole, 0)
+        if du is not None:
+            y_u = _apply(C_half, du.contiguous(), ctx.pole, 0)
+            dy = y_u if dy is None else dy + y_u
+        return dy if dy is not None else torch.zeros_like(u)
+
+
+def stencil3d_apply_half(
+    C_half: torch.Tensor, u: torch.Tensor, pole: bool = False, tile_rows: int = 0
+) -> torch.Tensor:
+    """y = A u from half storage: plain torch for CPU tensors, else the kernel;
+    differentiable in both arguments (:class:`StencilApplyHalf3D`).
+
+    C_half: (B, 14, NZ, NP, NR) from :func:`half_planes_3d`; u: (B, S, NZ, NP, NR).
+    With ``pole`` the result is ``pole_project(A pole_project(u))``; u itself is
+    not modified. ``tile_rows`` forces the kernel's planes per block (a tuning
+    sweep's knob; 0 is the kernel's own choice and what every caller uses).
+    """
+    return StencilApplyHalf3D.apply(C_half, u, pole, tile_rows)

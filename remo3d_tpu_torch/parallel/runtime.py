@@ -122,6 +122,26 @@ def _solve_chunk(
     )
 
 
+def _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw):
+    """Singularity-subtracted 2D load with the boundary lift.
+
+    Returns (rhs, g_lift, u_s): the solution is u = w + g_lift + u_s with
+    A w = rhs. The lift uses the RAW stencil ``C_raw``: the eliminated one has
+    no couplings into the Dirichlet nodes.
+    """
+    nz = coords.shape[-3]
+    freeb = free[:, None]  # broadcast over the solve axis
+    sigma0 = sigma[:, 0, 0]  # borehole column = mud conductivity
+    z_axis = coords[:, :, 0, 0]  # (B, NZ)
+    B, S = src_i.shape[:2]
+    src_z = torch.gather(z_axis[:, None, :].expand(B, S, nz), 2, src_i)  # (B, S, K)
+    u_s = fundamental_potential_2d(coords, sigma0, src_z, src_fac)
+    rhs = singularity_rhs_2d(coords, sigma, sigma0, src_z, src_fac)
+    g_lift = torch.where(freeb, torch.zeros_like(u_s), -u_s)
+    rhs = rhs - stencil_apply(C_raw, g_lift)
+    return torch.where(freeb, rhs, torch.zeros_like(rhs)), g_lift, u_s
+
+
 def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, maxiter,
           subtract):
     """Load build + PCG + axis readout of a 2D chunk, whatever preconditions it.
@@ -131,19 +151,8 @@ def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, 
     ``matvec`` the operator apply (None = the plain 9-point apply of ``C``).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
-    freeb = free[:, None]  # broadcast over the solve axis
     if subtract:
-        sigma0 = sigma[:, 0, 0]  # borehole column = mud conductivity
-        z_axis = coords[:, :, 0, 0]  # (B, NZ)
-        B, S = src_i.shape[:2]
-        src_z = torch.gather(z_axis[:, None, :].expand(B, S, nz), 2, src_i)  # (B,S,2)
-        u_s = fundamental_potential_2d(coords, sigma0, src_z, src_fac)
-        rhs = singularity_rhs_2d(coords, sigma, sigma0, src_z, src_fac)
-        g_lift = torch.where(freeb, torch.zeros_like(u_s), -u_s)
-        # The lift uses the RAW stencil: the eliminated one has no couplings
-        # into the Dirichlet nodes.
-        rhs = rhs - stencil_apply(C_raw, g_lift)
-        rhs = torch.where(freeb, rhs, torch.zeros_like(rhs))
+        rhs, g_lift, u_s = _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw)
         w0, info = pcg(C, rhs, M_inv=M_inv, tol=tol, maxiter=maxiter, matvec=matvec)
         u = w0 + g_lift + u_s
     else:

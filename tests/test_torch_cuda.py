@@ -268,3 +268,113 @@ def test_small_direct_logs_on_card(cuda_device, schedule, passes):
         assert log.last_report["factor_seconds"] > 0
         for t in tools:
             np.testing.assert_allclose(log.logs[t][:, 1], ref.logs[t][:, 1], rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,pole", [
+    ("K1", (3, 5, 97, 33), None), ("K1", (2, 3, 37, 23), None),
+    ("K2", (2, 5, 33, 5, 17), False), ("K2", (2, 5, 33, 5, 17), True),
+    ("K2", (2, 3, 11, 5, 7), True),
+])
+def test_kernel_gradients_match_plain(cuda_device, kernel, shape, pole):
+    """StencilApplyHalf2D / 3D on the card: the output carries a grad_fn, and
+    grad_u and grad_C_half of a random projection equal autograd of the plain
+    version to 1e-5 of max|grad| (float32); the backward launches the kernel
+    once (grad_u)."""
+    rng = np.random.default_rng(9)
+    B = shape[0]
+    if kernel == "K1":
+        mod = stencil2d
+        C = stencil2d.half_planes_2d(torch.as_tensor(
+            random_symmetric_stencil_2d(rng, B, *shape[2:]), device=cuda_device).float())
+        apply_, plain = stencil2d.stencil_apply_half_2d, stencil2d.stencil_apply_half_2d_plain
+    else:
+        mod = stencil3d
+        C = stencil3d.half_planes_3d(torch.as_tensor(
+            random_symmetric_stencil_3d(rng, B, *shape[2:]), device=cuda_device).float())
+        apply_ = lambda C, u: stencil3d.stencil3d_apply_half(C, u, pole)  # noqa: E731
+        plain = lambda C, u: stencil3d.stencil3d_apply_half_plain(C, u, pole)  # noqa: E731
+    C.requires_grad_(True)
+    u = torch.randn(shape, device=cuda_device, requires_grad=True)
+    g = torch.randn(shape, device=cuda_device)
+    y = apply_(C, u)
+    assert y.grad_fn is not None
+    before = mod.LAUNCHES
+    grads = torch.autograd.grad((y * g).sum(), (C, u))
+    assert mod.LAUNCHES == before + 1
+    refs = torch.autograd.grad((plain(C, u) * g).sum(), (C, u))
+    for a, b in zip(grads, refs):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pole", [((1, 2, 7, 5), None), ((1, 2, 6, 3, 5), False),
+                                        ((1, 2, 6, 3, 5), True)])
+def test_kernel_gradcheck_float64(cuda_device, shape, pole):
+    """torch.autograd.gradcheck of the kernels' Functions in float64, reverse
+    and forward mode (the jvp: two launches)."""
+    rng = np.random.default_rng(10)
+    if pole is None:
+        C = stencil2d.half_planes_2d(torch.as_tensor(
+            random_symmetric_stencil_2d(rng, 1, *shape[2:]), device=cuda_device))
+        fn = stencil2d.stencil_apply_half_2d
+    else:
+        C = stencil3d.half_planes_3d(torch.as_tensor(
+            random_symmetric_stencil_3d(rng, 1, *shape[2:]), device=cuda_device))
+        fn = lambda C, u: stencil3d.stencil3d_apply_half(C, u, pole)  # noqa: E731
+    u = torch.randn(shape, device=cuda_device, dtype=torch.float64)
+    assert torch.autograd.gradcheck(fn, (C.requires_grad_(True), u.requires_grad_(True)),
+                                    check_forward_ad=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_small_differentiable_log_on_card(cuda_device, dim):
+    """A tiny DifferentiableLog on the card: the forward, torch.autograd.grad
+    and the Jacobian each launch K1 (2D) / K2 (3D); the card's forward and
+    Jacobian agree with the CPU's (1e-4, and 1e-3 of scale), and reverse mode
+    with the Jacobian's projection (2e-3 of scale)."""
+    from remo3d_tpu_torch import DifferentiableLog
+
+    if dim == 2:
+        model = Model(["A2.0M0.5N", "B5.7A0.4M"])
+        model.set_model_parameters(
+            np.array([[-100.0, 2.0, np.nan, np.nan, 10.0], [2.0, 3.0, 0.3, 5.0, 100.0],
+                      [3.0, 200.0, np.nan, np.nan, 10.0]]),
+            np.array([[-100.0, 0.1, 1.0], [200.0, 0.1, 1.0]]), borehole_geometry_type="radius")
+        kw = dict(grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=6, n_blend_cells=3))
+        depths, kernel = np.array([2.0, 2.5, 3.0]), stencil2d
+    else:
+        model = Model(["A0.4M0.1N"])
+        model.set_model_parameters(
+            np.array([[-1000.0, 1.0, np.nan, np.nan, 10.0], [1.0, 2.2, 0.4, 5.0, 100.0],
+                      [2.2, 1000.0, np.nan, np.nan, 10.0]]),
+            np.array([[-1000.0, 0.1, 1.0], [1000.0, 0.1, 1.0]]),
+            borehole_geometry_type="radius", dip=30)
+        kw = dict(grid_spec3d=GridSpec3D(nz=33, np_=5, nr=17, n_wall_cells=3, n_blend_cells=2),
+                  domain_radius=10.0)
+        depths, kernel = np.array([1.2, 1.6, 2.0]), stencil3d
+    card = DifferentiableLog(model, depths, chunk_size=4, device="cuda", **kw)
+    cpu = DifferentiableLog(model, depths, chunk_size=4, device="cpu", **kw)
+    p0 = card.params0
+    launches = []
+    before = kernel.LAUNCHES
+    out = card.forward(p0)
+    launches.append(kernel.LAUNCHES - before)
+    p = torch.tensor(p0, device=cuda_device, dtype=torch.float32, requires_grad=True)
+    w = torch.randn(out.shape, device=cuda_device)
+    logs = card(p)
+    loss = torch.where(torch.isnan(logs), 0.0, logs * w).sum()
+    before = kernel.LAUNCHES
+    (g,) = torch.autograd.grad(loss, p)
+    launches.append(kernel.LAUNCHES - before)
+    before = kernel.LAUNCHES
+    J = card.jacobian(p0)
+    launches.append(kernel.LAUNCHES - before)
+    assert min(launches) > 0, launches
+    np.testing.assert_allclose(out.cpu().numpy(), cpu.forward(p0).numpy(), rtol=1e-4)
+    J_cpu = cpu.jacobian(p0).numpy()
+    J = J.cpu().numpy()
+    assert np.abs(J - J_cpu).max() <= 1e-3 * np.abs(J_cpu).max()
+    g_fwd = np.einsum("mtp,mt->p", J, w.cpu().numpy())
+    assert np.abs(g.cpu().numpy() - g_fwd).max() <= 2e-3 * np.abs(g_fwd).max()
