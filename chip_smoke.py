@@ -61,10 +61,31 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     K2's launches;
 19. the card against the CPU (forward and Jacobian of the 2D log on a 193x41
     grid), then a Levenberg-Marquardt inversion of the 3D log on a 49x7x21
-    grid, which must recover the 4 resistivities.
+    grid, which must recover the 4 resistivities;
+20. the native mesher: its grids against the numpy builders' at 761x161 (2D),
+    193x17x49 at dip 30 and the ``high_dip`` grid at dip 60, then the
+    100-point 3D log of phase 8 meshed natively and with numpy (readouts
+    agree, mesh seconds of both);
+21. the layered oracle: a long lateral over 40 random thin beds, 21 depths on
+    the default grid, against the semi-analytic layered-medium solution;
+22. checkpoint: the log of phase 4 in 4 chunks, broken after its second chunk,
+    resumed (only the 2 missing chunks are solved, the log equals an unbroken
+    run), then run again (no chunk is solved);
+23. ``profile_dir``: the first 10 depths of the 2D and 3D logs traced, each
+    trace naming its kernel;
+24. two ranks over gloo on the one card: the log of phase 4 split on the batch
+    axis, a 4-depth 3D log of one batch split on the solve axis, both against
+    the single-process logs; and a rank at world size 1, bitwise equal to no
+    process group.
 
-The line before the last is a JSON object with one entry per kernel; the last
-is ``{"ok": true, "device": {...}}``.
+Every phase group (3-6, 7-11, 12-15, 16-19, 20-24) runs in a child process
+(``python3 chip_smoke.py --phase <group>``) under ``timeout -k 10 <limit>``
+(:data:`GROUP_LIMITS`, about three times the group's time on an H100), so a
+hung launch fails the run with a printed line instead of blocking it; the
+parent builds the kernels once before the first group. Each child's last line
+is a JSON object with its results, from which the parent assembles the
+kernels line. The line before the last is a JSON object with one entry per
+kernel; the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone, and
 ``python3 chip_smoke.py --diff`` phases 16-19.
@@ -81,7 +102,7 @@ shapes for every tile height, to choose the kernels' automatic one.
 ``python3 chip_smoke.py --probe`` instead times K2 beside its probe builds
 (``REMO3D_K2_PROBE`` in ``csrc/stencil3d.cu``: without the mirrored coefficient
 loads, without any coefficient load, without the sum over shared memory), to
-say what its time is spent on.
+say what its time is spent on. Every mode runs in a child under its limit.
 """
 
 from __future__ import annotations
@@ -154,7 +175,9 @@ UNIFORM3D_REL = 1e-3
 # same plan (tol 1e-10, so meshing, assembly and load are float64 too): on the
 # 761x161 grid the float32 multigrid log itself sits 5.6e-4 from it (tool
 # M4.0A0.5B; the others 2.0e-4 to 3.4e-4) and the direct logs 5.6e-4 to 6.2e-4,
-# measured on an H100. Against the float32 multigrid (2D) or "adi" (3D) log,
+# measured on an H100. The JAX package's float32 log of this workload sits up
+# to 3.19e-4 from its float64 one (CPU, tests/test_torch_spread.py run as a
+# script): the rest is the port's float32 2D operator (ROADMAP C2). Against the float32 multigrid (2D) or "adi" (3D) log,
 # which carries its own such spread: 6e-4 in 2D (1.3x the largest reading on an
 # H100, 4.65e-4 for the chain), LOG3D_REL_PAIR in 3D.
 LOG64_REL = 1e-3
@@ -196,10 +219,117 @@ DIFF_CPU_REL, DIFF_CPU_JAC = 2e-4, 2e-3
 # outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# The rest of the package (phases 20-24). Native against numpy grids: the JAX
+# package's limits (tests/test_grid.py). The two 3D logs (grids within 1e-11)
+# are float32 CG solves stopped at tol 1e-5, which the grids' rounding moves
+# by about that tolerance (1.8e-5 on an H100): held to ten times it.
+NATIVE_COORD_ATOL, NATIVE_SIGMA3D_RTOL, NATIVE_LOG_REL = 1e-10, 1e-9, 1e-4
+# tests/test_oracle.py's thin-bed stack and tool; its bound, 1%.
+ORACLE_TOOL, ORACLE_DEPTHS, ORACLE_REL = "A4.0M0.5N", np.linspace(-2.0, 2.0, 21), 0.01
+# Phase 22: chunks of 24 batches cut phase 4's 74 batches into 4 chunks; a
+# resumed log repeats the unbroken run's arithmetic chunk by chunk.
+CKPT_CHUNK, CKPT_BREAK_AT, CKPT_REL = 24, 3, 1e-6
+# Phase 24: split logs against the single-process ones, in float64: a float32
+# CG stopped at tol 1e-5 whose reductions sum in another order (another chunk
+# shape) moves a readout by about the tolerance (1.0e-5 on the CPU for the
+# 3D log split on the solve axis), in float64 by nothing visible.
+RANKS_REL, RANKS_DTYPE = 1e-5, "float64"
+DEPTHS_RANKS_3D = DEPTHS_3D[:4]
+
+# Time limit (s) of each phase group's child: about three times the group's
+# time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~170-230
+# s, 16-19 ~70 s, 20-24 ~105 s) plus the child's start.
+GROUP_LIMITS = {
+    "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420,
+    "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600, "probe": 600,
+}
+GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24"]
+MODES = {"--screen": "12-15", "--diff": "16-19", "--profile3d": "profile3d",
+         "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
+         "--tune": "tune", "--probe": "probe"}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_ACTIVE_GROUPS: set[int] = set()  # process groups of the children running now
+
+
+def _end_children(signum, frame):
+    """SIGTERM (a limit reached this process): end the children it runs first."""
+    import signal
+
+    for pgid in list(_ACTIVE_GROUPS):
+        try:
+            os.killpg(pgid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    os._exit(128 + signum)
+
+
+def run_child(argv: list[str], limit_s: float, env: dict | None = None, echo: bool = True) -> dict:
+    """Run ``argv`` under ``timeout -k 10 <limit_s>`` and wait for it.
+
+    The child's standard output is echoed line by line (``echo``), its
+    standard error passes through. Returns {"status": "ok" | "cut" | "failed",
+    "returncode", "seconds", "result" (the last output line parsed as JSON, or
+    None), "tail" (the last 40 output lines)}. "cut" means the limit ended the
+    child (exit 124, or 137 after the kill 10 s later); timeout signals the
+    child's whole process group, so the processes it started end too. A
+    watchdog kills the group should timeout itself fail to. Imports neither
+    torch nor jax, so a CPU test can drive it."""
+    import collections
+    import signal
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        ["timeout", "-k", "10", str(limit_s), *argv], stdout=subprocess.PIPE, text=True,
+        env=env, start_new_session=True,
+    )
+
+    def kill_group():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    _ACTIVE_GROUPS.add(proc.pid)
+    watchdog = threading.Timer(limit_s + 30, kill_group)
+    watchdog.start()
+    tail = collections.deque(maxlen=40)
+    held = []  # the last non-empty line and the blank ones after it
+    try:
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            tail.append(line)
+            if line.strip():
+                if echo:
+                    for h in held:
+                        print(h, flush=True)
+                held = [line]
+            else:
+                held.append(line)
+        proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            kill_group()
+            proc.wait()
+        _ACTIVE_GROUPS.discard(proc.pid)
+    seconds = time.perf_counter() - t0
+    result = None
+    try:
+        result = json.loads(held[0]) if held else None
+    except json.JSONDecodeError:
+        if echo:
+            print(held[0], flush=True)
+    rc = proc.returncode
+    status = "ok" if rc == 0 and isinstance(result, dict) else (
+        "cut" if rc in (124, 137, -9) else "failed")
+    return {"status": status, "returncode": rc, "seconds": seconds, "result": result,
+            "tail": list(tail)}
 
 
 def random_symmetric_stencil_2d(rng, B, NZ, NR):
@@ -680,7 +810,10 @@ def run_3d(torch, card):
         + ", ".join(f"{k} {v:.3f} s" for k, v in report["phases"].items())
         + f"; launches {counts}"
     )
-    log(f"3D log Ra (ohm-m): min {vals.min():.4f}, max {vals.max():.4f}")
+    log(f"3D log Ra (ohm-m): min {vals.min():.4f}, max {vals.max():.4f}; meshed by "
+        f"{report['mesher']}")
+    if report["mesher"] != "native":
+        raise AssertionError(f"3D main path meshed by {report['mesher']}, not natively")
     if not np.isfinite(vals).all():
         raise AssertionError(f"3D: {int((~np.isfinite(vals)).sum())} non-finite readouts")
     if report["n_failed_solves"] != 0:
@@ -854,14 +987,9 @@ def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit
 
 def screen_2d(torch, card):
     """Phase 12: the 2D log of phase 4 under each preconditioner."""
-    from remo3d_tpu_torch import Model
 
     def make_log(depths, overrides, dtype="float32", **kwargs):
-        return Model.compute_synthetic_logs(
-            EXAMPLE01_TOOLS, depths, FORMATION, BOREHOLE, borehole_geometry_type="radius",
-            domain_radius=50, batch_size=5, dtype=dtype, device="cuda", verbose=False,
-            executor_overrides=overrides, **kwargs,
-        )
+        return log_2d(torch, depths, dtype, executor_overrides=overrides, **kwargs)
 
     def readouts(model):
         return np.stack([model.logs[t][:, 1] for t in EXAMPLE01_TOOLS], axis=1)
@@ -1497,14 +1625,340 @@ def profile_3d(torch, card):
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
 
 
-def main() -> int:
+def log_2d(torch, depths, dtype="float32", **kwargs):
+    """Phase 4's log (6 tools, this script's formation) on the card."""
+    from remo3d_tpu_torch import Model
+
+    return Model.compute_synthetic_logs(
+        EXAMPLE01_TOOLS, depths, FORMATION, BOREHOLE, borehole_geometry_type="radius",
+        domain_radius=50, batch_size=5, dtype=dtype, device="cuda", verbose=False, **kwargs,
+    )
+
+
+def readouts_2d(model):
+    return np.stack([model.logs[t][:, 1] for t in EXAMPLE01_TOOLS], axis=1)
+
+
+def native_mesher(torch, card):
+    """Phase 20: the native mesher's grids against the numpy builders', then the
+    100-point 3D log meshed both ways."""
+    from remo3d_tpu_torch.meshing import native
+    from remo3d_tpu_torch.meshing.carve import carve_local_model
+    from remo3d_tpu_torch.meshing.grid2d import GridSpec2D, build_grid2d
+    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D, build_grid3d
+    from remo3d_tpu_torch.planner import plan_tasks
+    from remo3d_tpu_torch.tools import parse_tools
+
+    if not native.native_available():
+        raise AssertionError(f"native mesher: {native.load_error()}")
+    cases = [
+        ("2D 761x161", EXAMPLE01_TOOLS, FORMATION, BOREHOLE, DEPTHS[[0, 50, 100]], 0,
+         GridSpec2D()),
+        (f"3D 193x17x49 dip {DIP}", TOOLS_3D, BM3_FORMATION, BM3_BOREHOLE,
+         DEPTHS_3D[[0, 40, 80]], DIP, GridSpec3D()),
+        ("3D high_dip 257x25x65 dip 60", TOOLS_3D, BM3_FORMATION, BM3_BOREHOLE,
+         DEPTHS_3D[[0, 40, 80]], 60, GridSpec3D.high_dip()),
+    ]
+    for label, names, formation, borehole, depths, dip_deg, spec in cases:
+        tools, sec = parse_tools(names, True)
+        _, tasks = plan_tasks(tools, sec, depths, 1)
+        dip = np.deg2rad(dip_deg)
+        builders = ((native.build_grid3d_native, build_grid3d) if dip_deg else
+                    (native.build_grid2d_native, build_grid2d))
+        coord_err = sigma_err = 0.0
+        seconds = [0.0, 0.0]
+        for t in tasks:
+            lm = carve_local_model(formation, borehole[:, :2], 1.0, t.center_depth, 50.0,
+                                   dip_rad=dip, active_geometry_window=0.99 if dip_deg else 0.999)
+            sources = np.unique(np.concatenate([s.source_positions for s in t.solves]))
+            args = (spec, 50.0, lm, *((dip,) if dip_deg else ()), t.electrode_positions, sources)
+            grids = []
+            for k, build_fn in enumerate(builders):
+                t0 = time.perf_counter()
+                grids.append(build_fn(*args))
+                seconds[k] += time.perf_counter() - t0
+            g_c, g_py = grids
+            coord_err = max(coord_err, float(np.abs(g_c.coords - g_py.coords).max()),
+                            float(np.abs(g_c.z_axis - g_py.z_axis).max()))
+            sigma_err = max(sigma_err, float(np.abs(g_c.sigma_cells / g_py.sigma_cells - 1).max()))
+            sigma_ok = (np.array_equal(g_c.sigma_cells, g_py.sigma_cells) if not dip_deg else
+                        np.allclose(g_c.sigma_cells, g_py.sigma_cells, rtol=NATIVE_SIGMA3D_RTOL,
+                                    atol=0))
+            if not (coord_err <= NATIVE_COORD_ATOL and sigma_ok
+                    and np.array_equal(g_c.free_mask, g_py.free_mask)):
+                raise AssertionError(f"native mesher {label} at {t.center_depth}: coords "
+                                     f"{coord_err:.2e}, sigma {sigma_err:.2e}")
+        log(f"native mesher {label}, {len(tasks)} batches: native vs numpy coords {coord_err:.2e} "
+            f"(limit {NATIVE_COORD_ATOL:g}), sigma {sigma_err:.2e} relative (limit "
+            f"{'0' if not dip_deg else f'{NATIVE_SIGMA3D_RTOL:g}'}), masks equal; build "
+            f"{seconds[0] / len(tasks) * 1e3:.1f} ms native, {seconds[1] / len(tasks) * 1e3:.1f} "
+            f"ms numpy per batch")
+
+    runs = {}
+    for name, on in (("numpy", False), ("native", True)):
+        model, wall, _, _ = diff_measure(torch, lambda: log_3d(
+            torch, DEPTHS_3D, device="cuda", dtype="float32",
+            executor_overrides={"use_native_mesher": on}))
+        report = model.last_report
+        runs[name] = model.logs[TOOLS_3D[0]][:, 1]
+        log(f"3D main path on {card} meshed by {report['mesher']}: wall {wall:.3f} s, mesh "
+            f"{report['phases']['mesh']:.3f} s, solve {report['phases']['solve']:.3f} s, "
+            f"{report['n_failed_solves']} failed solves")
+        if report["mesher"] != name or report["n_failed_solves"]:
+            raise AssertionError(f"3D log with use_native_mesher={on}: meshed by "
+                                 f"{report['mesher']}, {report['n_failed_solves']} failed")
+    rel = float(np.max(np.abs(runs["native"] / runs["numpy"] - 1)))
+    log(f"3D log natively meshed vs numpy-meshed: readouts agree to {rel:.3e} (limit "
+        f"{NATIVE_LOG_REL:g})")
+    if not (np.isfinite(runs["native"]).all() and rel <= NATIVE_LOG_REL):
+        raise AssertionError(f"native vs numpy 3D log: {rel:.3e}")
+
+
+def oracle_log(torch, card):
+    """Phase 21: tests/test_oracle.py's long lateral over 40 random thin beds
+    (seed 11, 0.002 m borehole), 21 depths on the default grid, against the
+    layered-medium oracle. Returns K1's launches."""
+    from remo3d_tpu_torch import Model
+    from remo3d_tpu_torch.tools import parse_tools
+    from remo3d_tpu_torch.utils.layered_oracle import layered_apparent_resistivity
+
+    rng = np.random.default_rng(11)
+    edges = np.cumsum(rng.uniform(0.12, 0.5, 40)) - 4.0
+    rho = rng.uniform(1.5, 9.0, 41)
+    formation = np.column_stack([np.concatenate([[-1000.0], edges]),
+                                 np.concatenate([edges, [1000.0]]),
+                                 np.full(41, np.nan), np.full(41, np.nan), rho])
+    borehole = np.array([[-1000.0, 0.002, 4.0], [1000.0, 0.002, 4.0]])
+    model, wall, counts, _ = diff_measure(torch, lambda: Model.compute_synthetic_logs(
+        [ORACLE_TOOL], ORACLE_DEPTHS, formation, borehole, borehole_geometry_type="radius",
+        device="cuda", verbose=False))
+    fem = model.logs[ORACLE_TOOL][:, 1]
+    tools, _ = parse_tools([ORACLE_TOOL], True)
+    tp = tools[ORACLE_TOOL]
+    offs = np.concatenate([[0.0], tp.geometry[tp.source_terms == 0]])
+    ana = np.array([layered_apparent_resistivity(edges, rho, offs, tp.geometric_factor,
+                                                 d + tp.depth_shift) for d in ORACLE_DEPTHS])
+    rel = np.abs(fem / ana - 1)
+    log(f"oracle on {card}: {ORACLE_TOOL} over 40 thin beds, {len(ORACLE_DEPTHS)} depths in "
+        f"{wall:.3f} s, launches {counts}; FEM vs layered oracle max {float(rel.max()):.3e}, "
+        f"mean {float(rel.mean()):.3e} (limit {ORACLE_REL:g})")
+    if not (np.isfinite(fem).all() and float(rel.max()) <= ORACLE_REL
+            and counts["stencil2d_half"] > 0 and model.last_report["n_failed_solves"] == 0):
+        raise AssertionError(f"oracle: {float(rel.max()):.3e}, launches {counts}")
+    return counts["stencil2d_half"]
+
+
+def checkpoint_resume(torch, card):
+    """Phase 22: phase 4's log in chunks of CKPT_CHUNK, broken in chunk
+    CKPT_BREAK_AT by wrapping the chunk solve, resumed, then run a third time.
+    Returns K1's launches in the resumed run."""
+    from remo3d_tpu_torch.parallel import runtime
+
+    over = {"executor_overrides": {"chunk_size": CKPT_CHUNK}}
+    whole, wall, _, _ = diff_measure(torch, lambda: log_2d(torch, DEPTHS, **over))
+    ref = readouts_2d(whole)
+    n_chunks = len(whole.last_report["chunks"])
+    inner = runtime._solve_chunk
+    calls = {"n": 0, "fail_at": CKPT_BREAK_AT}
+
+    def wrapped(*args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == calls["fail_at"]:
+            raise RuntimeError("chunk solve broken on purpose")
+        return inner(*args, **kwargs)
+
+    runtime._solve_chunk = wrapped
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "phase4.npz")
+            try:
+                log_2d(torch, DEPTHS, checkpoint=ckpt, **over)
+                raise AssertionError("checkpoint: the broken run was not broken")
+            except RuntimeError as e:
+                if "on purpose" not in str(e):
+                    raise
+            saved = len(np.load(ckpt)["done_chunks"])
+            calls.update(n=0, fail_at=None)
+            resumed, wall_r, counts, _ = diff_measure(
+                torch, lambda: log_2d(torch, DEPTHS, checkpoint=ckpt, **over))
+            n_resumed = calls["n"]
+            rel = float(np.max(np.abs(readouts_2d(resumed) / ref - 1)))
+            calls["n"] = 0
+            third, wall_3, _, _ = diff_measure(
+                torch, lambda: log_2d(torch, DEPTHS, checkpoint=ckpt, **over))
+            n_third = calls["n"]
+            same = np.array_equal(readouts_2d(third), readouts_2d(resumed))
+    finally:
+        runtime._solve_chunk = inner
+    log(f"checkpoint on {card}: unbroken log {n_chunks} chunks in {wall:.3f} s; broken in chunk "
+        f"{CKPT_BREAK_AT} with {saved} chunks saved; resumed: {n_resumed} chunk solves in "
+        f"{wall_r:.3f} s, launches {counts}, readouts vs unbroken {rel:.3e} (limit "
+        f"{CKPT_REL:g}); third run: {n_third} chunk solves in {wall_3:.3f} s, readouts "
+        f"{'equal' if same else 'DIFFER'}")
+    if not (n_chunks == 4 and saved == CKPT_BREAK_AT - 1 and n_resumed == n_chunks - saved
+            and rel <= CKPT_REL and n_third == 0 and same and counts["stencil2d_half"] > 0):
+        raise AssertionError(f"checkpoint: {n_chunks} chunks, {saved} saved, {n_resumed} "
+                             f"resumed, rel {rel:.3e}, third {n_third}, same {same}")
+    return counts["stencil2d_half"]
+
+
+def profile_traces(torch, card):
+    """Phase 23: the first 10 depths of the 2D and 3D logs with profile_dir;
+    each trace must exist and name its kernel. Returns launches per kernel."""
+    out = {}
+    cases = (
+        ("2D", "stencil2d_half", lambda d: log_2d(torch, DEPTHS[:10], profile_dir=d)),
+        ("3D", "stencil3d_half", lambda d: log_3d(torch, DEPTHS_3D[:10], device="cuda",
+                                                  dtype="float32", profile_dir=d)),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kernel, make in cases:
+            model, wall, counts, _ = diff_measure(torch, lambda: make(os.path.join(tmp, label)))
+            path = model.last_report.get("profile_trace", "")
+            text = open(path).read() if os.path.exists(path) else ""
+            symbol = f"{kernel}_kernel"
+            log(f"profile_dir on {card}: {label} log of 10 depths traced in {wall:.3f} s, "
+                f"{os.path.basename(path)} {len(text) / 1e6:.1f} MB, "
+                f"{text.count(symbol)} mentions of {symbol}, launches {counts}")
+            if not (text and symbol in text and counts[kernel] > 0):
+                raise AssertionError(f"profile_dir {label}: no trace naming {symbol}")
+            out[kernel] = counts[kernel]
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_worker(rank: int, world: int, port: int) -> dict:
+    """One rank of phase 24 (``--rank R --world N --port P``). At world size 2:
+    (a) phase 4's log in chunks of CKPT_CHUNK and (b) the 4-depth 3D log of one
+    batch, each with its wall, launches and report. At world size 1: the 2D
+    log of 10 depths and (b) before and after ``initialize_distributed``, which
+    must be bitwise equal."""
     import torch
 
+    guard(torch)
+    from remo3d_tpu_torch.parallel import distributed
+
+    def run_3d(dtype=RANKS_DTYPE):
+        return log_3d(torch, DEPTHS_RANKS_3D, batch_size=4, device="cuda", dtype=dtype)
+
+    if world == 1:
+        before = (readouts_2d(log_2d(torch, DEPTHS[:10])), run_3d("float32").logs[TOOLS_3D[0]])
+        if not distributed.initialize_distributed(f"localhost:{port}", 1, 0):
+            raise AssertionError("initialize_distributed returned False")
+        after = (readouts_2d(log_2d(torch, DEPTHS[:10])), run_3d("float32").logs[TOOLS_3D[0]])
+        out = {"bitwise": [bool(np.array_equal(a, b)) for a, b in zip(before, after)]}
+    else:
+        if not distributed.initialize_distributed(f"localhost:{port}", world, rank):
+            raise AssertionError("initialize_distributed returned False")
+        out = {}
+        for case, make, vals in (
+            ("a", lambda: log_2d(torch, DEPTHS, RANKS_DTYPE,
+                                 executor_overrides={"chunk_size": CKPT_CHUNK}), readouts_2d),
+            ("b", run_3d, lambda m: m.logs[TOOLS_3D[0]][:, 1:2]),
+        ):
+            model, wall, counts, _ = diff_measure(torch, make)
+            r = model.last_report
+            out[case] = {"readouts": vals(model).tolist(), "wall_s": wall, "launches": counts,
+                         "failed": r["n_failed_solves"], "axes": r["axes"], "device": r["device"],
+                         "chunks": [c["batches"] for c in r["chunks"]],
+                         "solves": [c["solves"] for c in r["chunks"]]}
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return {"rank": rank, "world": world, **out}
+
+
+def two_ranks(torch, card):
+    """Phase 24: two ranks over gloo, both on cuda:0; (a) and (b) against the
+    single-process logs; then a rank at world size 1. Returns launches per
+    kernel and rank."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    model, wall_a, _, _ = diff_measure(torch, lambda: log_2d(
+        torch, DEPTHS, RANKS_DTYPE, executor_overrides={"chunk_size": CKPT_CHUNK}))
+    ref_2d = readouts_2d(model)
+    model, wall_b, _, _ = diff_measure(torch, lambda: log_3d(
+        torch, DEPTHS_RANKS_3D, batch_size=4, device="cuda", dtype=RANKS_DTYPE))
+    ref_3d = model.logs[TOOLS_3D[0]][:, 1:2]
+    log(f"ranks: single-process {RANKS_DTYPE} logs: (a) {len(DEPTHS)} depths in chunks of "
+        f"{CKPT_CHUNK} in {wall_a:.3f} s, (b) {len(DEPTHS_RANKS_3D)} depths in one 3D batch in "
+        f"{wall_b:.3f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    me = os.path.abspath(__file__)
+    limit = GROUP_LIMITS["20-24"] // 3
+    port = free_port()
+    with ThreadPoolExecutor(2) as pool:
+        runs = list(pool.map(lambda r: run_child(
+            [sys.executable, me, "--rank", str(r), "--world", "2", "--port", str(port)], limit,
+            echo=False), range(2)))
+    launches = {"stencil2d_half": {}, "stencil3d_half": {}}
+    faults = []
+    for r, run in enumerate(runs):
+        if run["status"] != "ok":
+            log("\n".join(run["tail"]))
+            raise AssertionError(f"rank {r} {run['status']} (exit {run['returncode']}) after "
+                                 f"{run['seconds']:.1f} s")
+        res = run["result"]
+        for case, ref, kernel, axes in (("a", ref_2d, "stencil2d_half", {"batch": 2, "solve": 1}),
+                                        ("b", ref_3d, "stencil3d_half", {"batch": 1, "solve": 2})):
+            c = res[case]
+            vals = np.asarray(c["readouts"])
+            rel = float(np.max(np.abs(vals / ref - 1)))
+            n = c["launches"][kernel]
+            launches[kernel][f"launches_rank{r}"] = n
+            log(f"rank {r} of 2 on {c['device']} ({card}): ({case}) {vals.shape[0]} depths, "
+                f"axes {c['axes']}, batches per chunk {c['chunks']}, solves per chunk "
+                f"{c['solves']}, wall {c['wall_s']:.3f} s, launches {c['launches']}, "
+                f"{c['failed']} failed solves; vs the single-process log {rel:.3e} (limit "
+                f"{RANKS_REL:g})")
+            if not (np.isfinite(vals).all() and rel <= RANKS_REL and c["failed"] == 0
+                    and n > 0 and c["axes"] == axes):
+                faults.append(f"rank {r} ({case}): rel {rel:.3e}, launches {n}, axes {c['axes']}")
+    one = run_child([sys.executable, me, "--rank", "0", "--world", "1", "--port",
+                     str(free_port())], limit, echo=False)
+    if one["status"] != "ok":
+        log("\n".join(one["tail"]))
+        raise AssertionError(f"world size 1: {one['status']} (exit {one['returncode']})")
+    log(f"world size 1: the 2D and 3D logs after initialize_distributed bitwise equal to the "
+        f"logs before it: {one['result']['bitwise']} ({one['seconds']:.1f} s)")
+    if not all(one["result"]["bitwise"]):
+        faults.append(f"world size 1 not bitwise: {one['result']['bitwise']}")
+    if faults:
+        raise AssertionError("ranks: " + "; ".join(faults))
+    return launches
+
+
+def run_rest(torch, card):
+    """Phases 20-24; returns the launch counts per kernel for the kernels line."""
+    out = {"stencil2d_half": {}, "stencil3d_half": {}}
+    native_mesher(torch, card)  # 20
+    out["stencil2d_half"]["launches_oracle"] = oracle_log(torch, card)  # 21
+    out["stencil2d_half"]["launches_resume"] = checkpoint_resume(torch, card)  # 22
+    for kernel, n in profile_traces(torch, card).items():  # 23
+        out[kernel]["launches_profile"] = n
+    for kernel, d in two_ranks(torch, card).items():  # 24
+        out[kernel].update(d)
+    return out
+
+
+def check_checkout(torch):
+    """Every process of this script: a card is visible, the package is this
+    checkout's, JAX was not imported."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
-    sys.path.insert(0, REPO)
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
     import remo3d_tpu_torch
-    from remo3d_tpu_torch.kernels import build
 
     pkg_dir = os.path.dirname(os.path.abspath(remo3d_tpu_torch.__file__))
     if os.path.dirname(pkg_dir) != REPO:
@@ -1512,59 +1966,115 @@ def main() -> int:
     if any(m.split(".")[0] in ("jax", "remo3d_tpu") for m in sys.modules):
         raise SystemExit("chip_smoke: JAX was imported")
 
-    dev = torch.device("cuda:0")
-    torch.cuda.set_device(dev)
+
+def guard(torch):
+    """A child: :func:`check_checkout`, then the kernel library is loaded."""
+    check_checkout(torch)
+    from remo3d_tpu_torch.kernels import build
+
+    torch.cuda.set_device(torch.device("cuda:0"))
+    return build.load_library()
+
+
+def run_group(group: str) -> dict:
+    """A child: one phase group (or mode) on the card; returns its results."""
+    import torch
+
+    guard(torch)
+    card = card_line()
+    if group == "3-6":
+        info = report_kernel_info(torch)  # 2: what the built kernels use
+        k1 = check_k1(torch)  # 3
+        k1["launches"] = run_2d(torch, card)  # 4-6
+        return {"k1": k1, "info": {"stencil2d_half": info["K1 float32 S=5 NR=161"],
+                                   "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"]}}
+    if group == "7-11":
+        k2 = check_k2(torch)  # 7
+        k2["launches"] = run_3d(torch, card)  # 8-11
+        return {"k2": k2}
+    if group == "12-15":
+        return {"screen": run_screen(torch, card)}
+    if group == "16-19":
+        timings, launches = run_diff(torch, card)
+        return {"contraction": timings, "launches": launches}
+    if group == "20-24":
+        return {"launches": run_rest(torch, card)}
+    {"profile3d": profile_3d, "profile-direct": profile_direct, "tune-direct": tune_direct,
+     "tune": tune, "probe": probe}[group](torch, card)
+    return {}
+
+
+def main() -> int:
+    import signal
+
+    signal.signal(signal.SIGTERM, _end_children)
+    args = sys.argv[1:]
+    if args[:1] == ["--phase"] and len(args) == 2:
+        result = run_group(args[1])
+        print(json.dumps({"group": args[1], **result}))
+        return 0
+    if args[:1] == ["--rank"] and len(args) == 6:
+        rank, world, port = int(args[1]), int(args[3]), int(args[5])
+        print(json.dumps(rank_worker(rank, world, port)))
+        return 0
+    if args and (len(args) > 1 or args[0] not in MODES):
+        raise SystemExit(f"chip_smoke: unknown arguments {args}")
+    groups = [MODES[args[0]]] if args else GROUPS
+
+    # ---- 1. card -----------------------------------------------------------------
+    import torch
+
+    check_checkout(torch)
+    from remo3d_tpu_torch.kernels import build
+    from remo3d_tpu_torch.meshing import native
+
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    if gxx.returncode != 0:
+        raise SystemExit("chip_smoke: no g++ for the native mesher")
+    log(f"g++: {gxx.stdout.splitlines()[0]}")
 
     # ---- 2. build ------------------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_library()
+    build.build_library()
     log(f"build: {build.library_path().name} in {time.perf_counter() - t0:.1f} s")
     if build.build_log_path().exists():
         for line in build.build_log_path().read_text().splitlines():
             if "Compiling entry function" in line or "Used" in line or "spill" in line:
                 log("ptxas: " + line.strip())
-    info = report_kernel_info(torch)
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise SystemExit(f"chip_smoke: the native mesher does not build: {native.load_error()}")
+    log(f"build: {native.library_path().name} (native mesher) in {time.perf_counter() - t0:.1f} s")
 
-    if sys.argv[1:] == ["--screen"]:
-        rows = run_screen(torch, card)
-        log(card)
-        print(json.dumps({"screen": rows}))
-        return 0
-    if sys.argv[1:] == ["--diff"]:
-        timings, launches = run_diff(torch, card)
-        log(card)
-        print(json.dumps({"diff": {"contraction": timings, "launches": launches}}))
-        return 0
-    if sys.argv[1:] == ["--profile3d"]:
-        profile_3d(torch, card)
-        return 0
-    if sys.argv[1:] == ["--profile-direct"]:
-        profile_direct(torch, card)
-        return 0
-    if sys.argv[1:] == ["--tune-direct"]:
-        tune_direct(torch, card)
-        return 0
-    if sys.argv[1:] == ["--tune"]:
-        tune(torch, card)
-        return 0
-    if sys.argv[1:] == ["--probe"]:
-        probe(torch, card)
-        return 0
-    if sys.argv[1:]:
-        raise SystemExit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
-
+    # ---- the phase groups, each in a child under its limit ------------------------------
     t_start = time.perf_counter()
-    k1 = check_k1(torch)  # 3
-    k1["launches"] = run_2d(torch, card)  # 4-6
-    log(f"2D phases done at {time.perf_counter() - t_start:.1f} s")
-    k2 = check_k2(torch)  # 7
-    k2["launches"] = run_3d(torch, card)  # 8-11
-    log(f"3D phases done at {time.perf_counter() - t_start:.1f} s")
-    rows = run_screen(torch, card)  # 12-15
-    log(f"screen done at {time.perf_counter() - t_start:.1f} s")
+    results = {}
+    for g in groups:
+        run = run_child([sys.executable, os.path.abspath(__file__), "--phase", g], GROUP_LIMITS[g])
+        if run["status"] == "cut":
+            log(f"chip_smoke: phase group {g} cut after {run['seconds']:.1f} s (limit "
+                f"{GROUP_LIMITS[g]} s, exit {run['returncode']})")
+            return 1
+        if run["status"] != "ok":
+            log(f"chip_smoke: phase group {g} failed (exit {run['returncode']}) after "
+                f"{run['seconds']:.1f} s; its last lines:")
+            log("\n".join(run["tail"][-8:]))
+            return 1
+        results[g] = run["result"]
+        log(f"phase group {g} done in {run['seconds']:.1f} s (limit {GROUP_LIMITS[g]} s), "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+
+    if args:
+        payload = {k: v for k, v in results[groups[0]].items() if k != "group"}
+        log(card)
+        if payload:
+            print(json.dumps(payload))
+        return 0
+    k1, k2 = results["3-6"]["k1"], results["7-11"]["k2"]
+    rows = results["12-15"]["screen"]
     log(json.dumps({"screen": rows}))
     for k, name in ((k1, "stencil2d_half"), (k2, "stencil3d_half")):
         dim = "2D" if name == "stencil2d_half" else "3D"
@@ -1572,17 +2082,13 @@ def main() -> int:
             row = next(r for r in rows
                        if r["dim"] == dim and r["preconditioner"] == f"direct-{schedule}")
             k[f"launches_direct_{schedule}"] = row["launches"][name]
-    timings, launches = run_diff(torch, card)  # 16-19
-    log(f"diff done at {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"contraction": timings}))
-    k1.update(launches["stencil2d_half"])
-    k2.update(launches["stencil3d_half"])
+    log(json.dumps({"contraction": results["16-19"]["contraction"]}))
+    k1.update(results["16-19"]["launches"]["stencil2d_half"])
+    k2.update(results["16-19"]["launches"]["stencil3d_half"])
+    k1.update(results["20-24"]["launches"]["stencil2d_half"])
+    k2.update(results["20-24"]["launches"]["stencil3d_half"])
 
-    main_info = {
-        "stencil2d_half": info["K1 float32 S=5 NR=161"],
-        "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"],
-    }
-    log("kernel resources at the main shapes: " + json.dumps(main_info))
+    log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
     log(card)
     print(json.dumps({"kernels": [
         {

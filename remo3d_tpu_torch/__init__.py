@@ -4,7 +4,8 @@
 Forward modeling of normal and lateral resistivity logs: the same ``Model`` API
 as the JAX package. Dip 0 runs the 2D axisymmetric solver (batched multigrid
 PCG), a dip the 3D dipping-layer solver (ADI line-preconditioned PCG), in torch
-on one device. The 9-point and 27-point stencil applies are hand-written CUDA
+on one device per process (several processes split a log over
+``parallel.distributed``). The 9-point and 27-point stencil applies are hand-written CUDA
 kernels for Hopper (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``), with their
 gradients. ``DifferentiableLog`` exposes a log as a differentiable torch
 function of the formation resistivities. Imports torch and numpy, never JAX.

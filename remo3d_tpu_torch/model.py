@@ -268,12 +268,13 @@ class Model:
         invasion annuli refine the radial grading, see ``_resolve_spec3d``) and
         ``executor_overrides`` (a dict of
         :class:`~remo3d_tpu_torch.parallel.runtime.ExecutorConfig` field overrides)
-        are as in the JAX package. ``profile_dir`` and ``checkpoint`` are not
-        ported yet and raise when set.
+        are as in the JAX package. ``profile_dir`` writes a torch.profiler
+        trace of the chunk loop into that directory; ``checkpoint`` (an .npz
+        path) keeps per-chunk results, so a rerun of the same configuration
+        resumes where the last one stopped. Under several processes
+        (``parallel.distributed.initialize_distributed``) every rank calls this
+        with the same arguments and gets the whole log.
         """
-        for name, value in (("profile_dir", profile_dir), ("checkpoint", checkpoint)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported yet (see ROADMAP)")
         start_time = datetime.datetime.now()
         measurement_depths = np.asarray(measurement_depths, dtype=float)
         if tol is None:
@@ -335,6 +336,8 @@ class Model:
             dtype=dtype,
             preconditioner=preconditioner,
             device=device,
+            profile_dir=profile_dir,
+            checkpoint=checkpoint,
             **config_kwargs,
         )
         if executor_overrides:

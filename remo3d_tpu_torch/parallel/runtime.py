@@ -1,19 +1,25 @@
 # -*- coding: utf-8 -*-
-"""Batched solve executor on one torch device (a CUDA card or the CPU).
+"""Batched solve executor on one torch device (a CUDA card or the CPU) per
+process.
 
 Counterpart of ``remo3d_tpu.parallel.runtime`` for the 2D axisymmetric path
 (multigrid or block-direct PCG) and the 3D dipping-layer path (ADI line or
 block-direct PCG). All batch meshes of a chunk are stacked into fixed-shape
 tensors and solved together (assembly + batched PCG + axis readout); solves
 are uniform in cost by construction (fixed topology), so chunks are padded
-with benign lanes instead of being scheduled dynamically.
+with benign lanes instead of being scheduled dynamically. Under several
+processes (``parallel/distributed.py``) each chunk is split over the ranks.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
+import math
+import os
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ from ..meshing.carve import carve_local_model
 from ..meshing.device_mesh import device_mesh_2d
 from ..meshing.grid2d import Grid2DLight, GridSpec2D, build_grid2d, build_grid2d_light
 from ..meshing.grid3d import Grid3D, GridSpec3D, build_grid3d
+from ..meshing.native import build_grid2d_native, build_grid3d_native, load_error, native_available
 from ..ops.assembly2d import (
     apply_dirichlet,
     element_matrices_2d,
@@ -56,6 +63,7 @@ from ..ops.stencil import stencil_apply
 from ..ops.stencil3d import pole_project, stencil3d_apply
 from ..planner import BatchTask
 from ..utils.timers import PhaseTimers
+from . import distributed
 
 MAX_SOURCES = 2  # per solve: one (+1) in SEC form or a (+1, -1) pair
 
@@ -374,6 +382,37 @@ def _solve_chunk_3d(
     )
 
 
+_numpy_fallback_warned = False
+
+
+def _warn_numpy_fallback() -> None:
+    """Warn, once per process, that host meshing falls back to numpy."""
+    global _numpy_fallback_warned
+    if not _numpy_fallback_warned:
+        _numpy_fallback_warned = True
+        warnings.warn(
+            f"native grid builder unavailable ({load_error()}); meshing with numpy",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def _split_axes(n_ranks: int, n_batches: int, n_solves: int) -> tuple[int, int]:
+    """(ranks on the batch axis, ranks on the solve axis) for a run of
+    ``n_batches`` batch meshes of ``n_solves`` solve slots each: the solve axis
+    takes ranks only when batches are scarcer than ranks, and then the largest
+    count that divides both the slots and the ranks (``runtime.py:749-756`` of
+    the JAX package)."""
+    n_solve_axis = 1
+    if n_ranks > 1 and n_batches < n_ranks:
+        spare = n_ranks // math.gcd(n_ranks, n_batches)
+        for cand in range(min(n_solves, spare), 0, -1):
+            if n_solves % cand == 0 and n_ranks % cand == 0:
+                n_solve_axis = cand
+                break
+    return n_ranks // n_solve_axis, n_solve_axis
+
+
 class LazyGrids:
     """Sequence of per-batch grids, built on first access and cached.
 
@@ -464,11 +503,19 @@ class ExecutorConfig:
     # A solve is declared failed (NaN readouts, matching the reference's per-task
     # NaN containment) only above this attained relative residual.
     fail_residual: float = 1e-4
+    # Host meshing (3D grids, and 2D grids without device meshing): the native
+    # C++ builders (meshing/native.py) when g++ can build them, else the numpy
+    # ones with a warning; last_report["mesher"] says which ran.
+    use_native_mesher: bool = True
     # Build the 2D grids on the device from 1D profiles (meshing/device_mesh.py)
     # instead of staging host-built arrays. None = auto: on for CUDA, off on CPU.
     device_meshing: bool | None = None
-    # Chunks staged and solved ahead of the readout point.
-    pipeline_window: int = 3
+    # A torch.profiler trace of the chunk loop (CPU activities, and CUDA ones
+    # on a card), written into this directory as a Chrome trace file.
+    profile_dir: str | None = None
+    # An .npz path: per-chunk results, written after every chunk; a rerun with
+    # the same configuration and inputs skips the chunks already done.
+    checkpoint: str | None = None
 
 
 class Executor:
@@ -488,6 +535,12 @@ class Executor:
                 f"device {config.device!r}: no CUDA card is visible; pass "
                 "device='cpu' to run on the CPU"
             )
+        if on_cuda and self.device.index is None and distributed.is_multiprocess():
+            # One card per process, PyTorch's idiom; ranks beyond the card
+            # count share cards round robin.
+            local = int(os.environ.get("LOCAL_RANK", distributed.world()[0]))
+            self.device = torch.device("cuda", local % torch.cuda.device_count())
+        self.mesher = None  # set by prepare_batches: "native", "numpy" or "device"
         auto = {}
         if config.preconditioner == "auto":
             auto["preconditioner"] = "multigrid" if on_cuda else "direct"
@@ -526,7 +579,23 @@ class Executor:
     ) -> LazyGrids:
         """Per-batch grid builders, evaluated lazily (the "mesh" phase timer
         accounts every build, wherever it is triggered). A dip builds the 3D
-        grid (numpy), else the 2D one (profiles only with device meshing)."""
+        grid, else the 2D one (profiles only with device meshing); host grids
+        are built natively under ``use_native_mesher`` (:attr:`mesher`)."""
+        wants_native = self.config.use_native_mesher and (
+            dip_rad != 0 or not self.config.device_meshing)
+        native = wants_native and native_available()
+        if wants_native and not native:
+            _warn_numpy_fallback()
+        if dip_rad != 0:
+            builder = build_grid3d_native if native else build_grid3d
+            fz_refined = self.config.spec3d.fz_h_radial is not None  # numpy either way
+            self.mesher = "native" if native and not fz_refined else "numpy"
+        elif self.config.device_meshing:
+            builder = build_grid2d_light
+            self.mesher = "device"
+        else:
+            builder = build_grid2d_native if native else build_grid2d
+            self.mesher = "native" if native else "numpy"
 
         def build_one(i: int):
             t = tasks[i]
@@ -544,11 +613,10 @@ class Executor:
                     np.concatenate([s.source_positions for s in t.solves])
                 )
                 if dip_rad != 0:
-                    return build_grid3d(
+                    return builder(
                         self.config.spec3d, domain_radius, lm, dip_rad,
                         t.electrode_positions, sources,
                     )
-                builder = build_grid2d_light if self.config.device_meshing else build_grid2d
                 return builder(
                     self.config.spec, domain_radius, lm, t.electrode_positions, sources
                 )
@@ -589,6 +657,66 @@ class Executor:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _checkpoint_key(self, tasks, grids, n_measurements, n_tools, readout_factor, chunk,
+                        n_ranks, grid_shape) -> str:
+        """Key of a checkpoint: the run it belongs to. It hashes the solver
+        configuration, the chunk partitioning (chunk offsets mean something only
+        for the stride that made them), the world size and the model's content
+        (every grid's coordinates and conductivities, or its profiles under device
+        meshing, and the source and readout plan), so a rerun with another
+        tolerance, world size or a same-shape edited formation recomputes."""
+        cfg = self.config
+        is_3d = len(grid_shape) == 3
+        h = hashlib.blake2b(digest_size=16)
+        cfg_sig = (
+            cfg.tol, cfg.maxiter, cfg.dtype, cfg.preconditioner, cfg.precond3d,
+            cfg.direct_schedule, cfg.direct_factor_passes, cfg.adi_damp, cfg.fail_residual,
+            cfg.mg_degree, cfg.mg_power_iters, cfg.mg_line_steps, cfg.mg_smoother,
+            cfg.metric3d, cfg.use_stencil_kernel, readout_factor, chunk, n_ranks,
+            dataclasses.astuple(cfg.spec3d if is_3d else cfg.spec),
+        )
+        h.update(repr(cfg_sig).encode())
+        for t, g in zip(tasks, grids):
+            if isinstance(g, Grid2DLight):
+                h.update(g.content_bytes())
+            else:
+                h.update(np.ascontiguousarray(g.coords).tobytes())
+                h.update(np.ascontiguousarray(g.sigma_cells).tobytes())
+            for s in t.solves:
+                h.update(repr((
+                    list(np.asarray(s.source_positions).ravel()),
+                    list(np.asarray(s.source_terms).ravel()),
+                    [(ro.measurement_index, ro.tool_index, ro.geometric_factor,
+                      list(np.asarray(ro.measuring_positions).ravel())) for ro in s.readouts],
+                )).encode())
+        S = max(len(t.solves) for t in tasks)
+        return f"{n_measurements}x{n_tools}|{len(tasks)}x{S}|{grid_shape}|{h.hexdigest()}"
+
+    @contextlib.contextmanager
+    def _profiled(self, rank: int):
+        """A torch.profiler trace of the block into ``profile_dir`` (when set):
+        CPU activities, and CUDA ones on a card; the file's path goes into
+        ``last_report["profile_trace"]``."""
+        if not self.config.profile_dir:
+            yield
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(
+            self.config.profile_dir,
+            f"solve_rank{rank}_{os.getpid()}_{time.time_ns()}.pt.trace.json",
+        )
+        prof.export_chrome_trace(path)
+        self.last_report["profile_trace"] = path
+
     def run(
         self,
         tasks: list[BatchTask],
@@ -602,8 +730,16 @@ class Executor:
 
         ``readout_factor`` is 0.5 for 3D half-space models (the half-ball
         carries the full current). With ``verbose`` a progress line is printed
-        per chunk with CG iteration counts and the worst attained residual;
-        chunk statistics are accumulated in ``self.last_report`` either way.
+        per chunk with CG iterations and the worst attained residual; chunk
+        statistics are accumulated in ``self.last_report`` either way.
+
+        Under several processes every rank calls this with the same arguments.
+        Each chunk is split over the ranks: its batches evenly on the batch
+        axis, or, when there are fewer batches than ranks, its solve slots on
+        the solve axis too (:func:`_split_axes`). A rank meshes, stages, solves
+        and reads out only its share; every rank returns the full results, and
+        the failure counts of ``last_report`` are summed over the ranks (its
+        per-chunk rows are this rank's).
         """
         cfg = self.config
         dtype = np.dtype(cfg.dtype).type
@@ -614,13 +750,20 @@ class Executor:
         is_light = isinstance(g0, Grid2DLight)
         grid_shape = tuple(g0.grid_shape if is_light else g0.coords.shape[:-1])
         cell_shape = tuple(n - 1 for n in grid_shape)
+        rank, n_ranks = distributed.world()
+        n_batch_axis, n_solve_axis = _split_axes(n_ranks, B_total, S)
         # Bound concurrent solves (B*S): the chunk sizes are calibrated for the
-        # default batch_size of 5.
+        # default batch_size of 5. A chunk splits evenly over the batch axis.
         base = self._direct_chunk_cap(
             cfg.chunk_size_3d if is_3d else cfg.chunk_size, grid_shape)
-        chunk = max(1, min(base, max(1, base * 5 // S), B_total))
+        chunk = max(1, min(base, max(1, base * 5 // S), B_total), n_batch_axis)
+        chunk = -(-chunk // n_batch_axis) * n_batch_axis
+        lanes, slots = chunk // n_batch_axis, S // n_solve_axis
+        b_coord, s_coord = divmod(rank, n_solve_axis)
+        lane0, slot0 = b_coord * lanes, s_coord * slots
 
         results = np.full((n_measurements, n_tools), np.nan)
+        owned = np.zeros(results.shape, dtype=bool)  # the readouts this rank made
         self.last_report = {
             "chunks": [], "n_failed_solves": 0, "n_nan_readouts": 0,
             "chunk": chunk, "n_solve_slots": S, "factor_seconds": 0.0,
@@ -628,6 +771,9 @@ class Executor:
             "direct_schedule": cfg.direct_schedule,
             "use_stencil_kernel": cfg.use_stencil_kernel,
             "device": str(self.device),
+            "mesher": self.mesher,
+            "world_size": n_ranks,
+            "axes": {"batch": n_batch_axis, "solve": n_solve_axis},
         }
         # Layer-table pad: one tensor shape per run, sized to the deepest carved
         # stack and bucketed (multiples of 16, floor 48).
@@ -635,11 +781,32 @@ class Executor:
             lmax = max(g.bottoms.size for g in grids)
             LMAX_LAYERS = max(48, -(-lmax // 16) * 16)
 
+        ckpt_key = None
+        done_chunks: set[int] = set()
+        if cfg.checkpoint:
+            ckpt_key = self._checkpoint_key(tasks, grids, n_measurements, n_tools,
+                                            readout_factor, chunk, n_ranks, grid_shape)
+            if os.path.exists(cfg.checkpoint):
+                saved = np.load(cfg.checkpoint, allow_pickle=False)
+                if str(saved["key"]) == ckpt_key:
+                    results = saved["results"]
+                    done_chunks = {int(c) for c in saved["done_chunks"]}
+                    if verbose and done_chunks:
+                        print(f"  resuming: {len(done_chunks)} chunks already done")
+        self.last_report["resumed_chunks"] = len(done_chunks)
+
+        def share(start):
+            """This rank's batch tasks and grids of the chunk at ``start``, and
+            the grid its padded lanes copy (the chunk's first)."""
+            lo = min(start + lane0, B_total)
+            hi = min(start + lane0 + lanes, B_total)
+            return tasks[lo:hi], grids[lo:hi], grids[start]
+
         def stage_sources(batch_tasks, batch_grids, B):
-            src_i = np.zeros((B, S, MAX_SOURCES), dtype=np.int64)
-            src_fac = np.zeros((B, S, MAX_SOURCES), dtype=dtype)
+            src_i = np.zeros((B, slots, MAX_SOURCES), dtype=np.int64)
+            src_fac = np.zeros((B, slots, MAX_SOURCES), dtype=dtype)
             for bi, (t, g) in enumerate(zip(batch_tasks, batch_grids)):
-                for si, s in enumerate(t.solves):
+                for si, s in enumerate(t.solves[slot0 : slot0 + slots]):
                     for k, (pos, fac) in enumerate(zip(s.source_positions, s.source_terms)):
                         src_i[bi, si, k] = g.axis_node_index(pos)
                         src_fac[bi, si, k] = fac
@@ -648,11 +815,10 @@ class Executor:
         def stage_light(start):
             """Device-meshing staging: ~KB of 1D profiles per batch, meshed on
             the device."""
-            batch_tasks = tasks[start : start + chunk]
-            batch_grids = grids[start : start + chunk]
-            B = chunk
+            batch_tasks, batch_grids, pad = share(start)
+            B = lanes
             nz = grid_shape[0]
-            nfar = batch_grids[0].far.size
+            nfar = pad.far.size
             z = np.zeros((B, nz), dtype=dtype)
             wall = np.zeros((B, nz), dtype=dtype)
             far = np.zeros((B, nfar), dtype=dtype)
@@ -676,10 +842,10 @@ class Executor:
                 nlay[bi] = L
                 mud[bi] = g.mud_sigma
             for bi in range(len(batch_grids), B):  # padded lanes: unit medium
-                z[bi] = batch_grids[0].z_axis
-                wall[bi] = batch_grids[0].wall_of_z
-                far[bi] = batch_grids[0].far
-                rdet[bi] = batch_grids[0].r_detach
+                z[bi] = pad.z_axis
+                wall[bi] = pad.wall_of_z
+                far[bi] = pad.far
+                rdet[bi] = pad.r_detach
             profiles = [self._tensor(a) for a in (z, wall, far, rdet, bot, fzr, sfz, suz, nlay, mud)]
             spec = cfg.spec
             coords, sigma, free = device_mesh_2d(
@@ -694,12 +860,12 @@ class Executor:
             return [coords, sigma, free, *stage_sources(batch_tasks, batch_grids, B)]
 
         def stage(start):
-            """Stack one chunk's host-built arrays and place them on the device."""
+            """Stack this rank's share of one chunk's host-built arrays and place
+            them on the device."""
             if is_light:
                 return stage_light(start)
-            batch_tasks = tasks[start : start + chunk]
-            batch_grids = grids[start : start + chunk]
-            B = chunk  # pad to a full chunk: one tensor shape for every dispatch
+            batch_tasks, batch_grids, pad = share(start)
+            B = lanes  # pad to a full share: one tensor shape for every dispatch
             coords = np.zeros((B,) + g0.coords.shape, dtype=dtype)
             sigma = np.zeros((B,) + cell_shape, dtype=dtype)
             free = np.zeros((B,) + tuple(grid_shape), dtype=bool)
@@ -709,9 +875,9 @@ class Executor:
                 free[bi] = g.free_mask
             # Keep padded lanes numerically benign: real coords, sigma 1.
             for bi in range(len(batch_tasks), B):
-                coords[bi] = batch_grids[0].coords
+                coords[bi] = pad.coords
                 sigma[bi] = 1.0
-                free[bi] = batch_grids[0].free_mask
+                free[bi] = pad.free_mask
             return [self._tensor(coords), self._tensor(sigma), self._tensor(free),
                     *stage_sources(batch_tasks, batch_grids, B)]
 
@@ -758,80 +924,83 @@ class Executor:
                 self.last_report["factor_seconds"] += timings["factor"]()
             return host
 
-        # Chunks are meshed, staged and solved up to ``window`` ahead of the
-        # readout point. The CG loop syncs with the device every iteration, so
-        # the solve is not overlapped with host work yet (ROADMAP).
-        window = max(1, int(cfg.pipeline_window))
-        todo = list(range(0, B_total, chunk))
-        inflight: list[tuple[int, tuple]] = []
-        next_i = 0
-
-        def fill_pipeline():
-            nonlocal next_i
-            while next_i < len(todo) and len(inflight) < window:
-                s0 = todo[next_i]
-                next_i += 1
-                if hasattr(grids, "ensure"):  # mesh before staging: phases stay additive
-                    grids.ensure(s0, s0 + chunk)
+        # One chunk at a time: the CG loop syncs with the device every
+        # iteration, so there is no solve to overlap host work with yet.
+        n_failed_total = n_nan_total = 0
+        with self._profiled(rank):
+            for start in (s for s in range(0, B_total, chunk) if s not in done_chunks):
+                batch_tasks, batch_grids, _ = share(start)  # meshes before staging
                 with self.timers.phase("stage"):
-                    args = stage(s0)
-                with self.timers.phase("solve"):
-                    inflight.append((s0, solve(args)))
-
-        fill_pipeline()
-        while inflight:
-            start, (u_axis, rel_res, iters) = inflight.pop(0)
-            fill_pipeline()
-            batch_tasks = tasks[start : start + chunk]
-            batch_grids = grids[start : start + chunk]
-            n_failed = 0
-            n_nan = 0
-            with self.timers.phase("readout"):
-                for bi, (t, g) in enumerate(zip(batch_tasks, batch_grids)):
-                    for si, s in enumerate(t.solves):
-                        failed = (
-                            not np.isfinite(rel_res[bi, si])
-                            or rel_res[bi, si] > cfg.fail_residual
-                        )
-                        n_failed += failed
-                        for ro in s.readouts:
-                            if failed:
-                                value = np.nan
-                                n_nan += 1
-                            else:
-                                pots = [
-                                    u_axis[bi, si, g.axis_node_index(p)]
-                                    for p in ro.measuring_positions
-                                ]
-                                if len(pots) == 2:
-                                    value = abs(ro.geometric_factor * (pots[1] - pots[0]))
+                    args = stage(start)
+                with self.timers.phase("solve"), torch.profiler.record_function(
+                        "remo3d_tpu_torch.solve_chunk"):
+                    u_axis, rel_res, iters = solve(args)
+                del args
+                n_failed = 0
+                n_nan = 0
+                with self.timers.phase("readout"):
+                    for bi, (t, g) in enumerate(zip(batch_tasks, batch_grids)):
+                        for si, s in enumerate(t.solves[slot0 : slot0 + slots]):
+                            failed = (
+                                not np.isfinite(rel_res[bi, si])
+                                or rel_res[bi, si] > cfg.fail_residual
+                            )
+                            n_failed += failed
+                            for ro in s.readouts:
+                                if failed:
+                                    value = np.nan
+                                    n_nan += 1
                                 else:
-                                    value = abs(ro.geometric_factor * pots[0])
-                                value *= readout_factor
-                            results[ro.measurement_index, ro.tool_index] = value
+                                    pots = [
+                                        u_axis[bi, si, g.axis_node_index(p)]
+                                        for p in ro.measuring_positions
+                                    ]
+                                    if len(pots) == 2:
+                                        value = abs(ro.geometric_factor * (pots[1] - pots[0]))
+                                    else:
+                                        value = abs(ro.geometric_factor * pots[0])
+                                    value *= readout_factor
+                                results[ro.measurement_index, ro.tool_index] = value
+                                owned[ro.measurement_index, ro.tool_index] = True
 
-            n_real = sum(len(t.solves) for t in batch_tasks)
-            worst = float(np.max(rel_res[: len(batch_tasks)])) if batch_tasks else 0.0
-            self.last_report["chunks"].append(
-                {
-                    "batches": len(batch_tasks),
-                    "solves": n_real,
-                    "iterations": iters,
-                    "worst_residual": worst,
-                    "failed_solves": n_failed,
-                }
-            )
-            self.last_report["n_failed_solves"] += n_failed
-            self.last_report["n_nan_readouts"] += n_nan
-            if verbose:
-                done = min(start + chunk, B_total)
-                msg = (
-                    f"\r  [{done}/{B_total}] batches solved"
-                    f" (CG iters {iters}, worst rel residual {worst:.1e}"
+                n_real = sum(len(t.solves[slot0 : slot0 + slots]) for t in batch_tasks)
+                worst = float(np.max(rel_res[: len(batch_tasks)])) if batch_tasks else 0.0
+                self.last_report["chunks"].append(
+                    {
+                        "batches": len(batch_tasks),
+                        "solves": n_real,
+                        "iterations": iters,
+                        "worst_residual": worst,
+                        "failed_solves": n_failed,
+                    }
                 )
-                if n_failed:
-                    msg += f", {n_failed} FAILED solves -> NaN"
-                print(msg + ")", end="", flush=True)
+                n_failed_total += n_failed
+                n_nan_total += n_nan
+                if verbose:
+                    done = min(start + chunk, B_total)
+                    msg = (
+                        f"\r  [{done}/{B_total}] batches solved"
+                        f" (CG iters {iters}, worst rel residual {worst:.1e}"
+                    )
+                    if n_failed:
+                        msg += f", {n_failed} FAILED solves -> NaN"
+                    print(msg + ")", end="", flush=True)
+
+                if cfg.checkpoint:
+                    done_chunks.add(start)
+                    results = distributed.gather_result(results, owned)
+                    if rank == 0:
+                        tmp = cfg.checkpoint + ".tmp.npz"
+                        np.savez(
+                            tmp,
+                            key=ckpt_key,
+                            results=results,
+                            done_chunks=np.array(sorted(done_chunks), dtype=np.int64),
+                        )
+                        os.replace(tmp, cfg.checkpoint)
         if verbose:
             print()
+        results = distributed.gather_result(results, owned)
+        self.last_report["n_failed_solves"], self.last_report["n_nan_readouts"] = (
+            distributed.sum_over_ranks([n_failed_total, n_nan_total]))
         return results

@@ -1,2 +1,2 @@
 # -*- coding: utf-8 -*-
-"""Small utilities (phase timers)."""
+"""Small utilities: phase timers and the semi-analytic layered-medium oracle."""

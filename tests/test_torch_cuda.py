@@ -6,6 +6,8 @@ is not installed. On a machine with a card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from chip_smoke import (
     TOL_POLE,
     random_symmetric_stencil_2d,
     random_symmetric_stencil_3d,
+    run_child,
 )
 from remo3d_tpu_torch import Model
 from remo3d_tpu_torch.kernels import stencil2d, stencil3d
@@ -378,3 +381,17 @@ def test_small_differentiable_log_on_card(cuda_device, dim):
     assert np.abs(J - J_cpu).max() <= 1e-3 * np.abs(J_cpu).max()
     g_fwd = np.einsum("mtp,mt->p", J, w.cpu().numpy())
     assert np.abs(g.cpu().numpy() - g_fwd).max() <= 2e-3 * np.abs(g_fwd).max()
+
+
+@pytest.mark.cuda
+def test_stalled_launch_is_cut(cuda_device):
+    """A launch that hangs the card (a ~10-minute ``torch.cuda._sleep``, then
+    the sync that waits for it) is cut by chip_smoke's runner at its limit and
+    reported as cut, within 20 s of the limit. The limit is 20 s, not less, so
+    that the child reaches the card (~8 s for a process's start) and queues
+    the launch before it is cut."""
+    code = ("import torch; torch.cuda._sleep(int(600 * 2e9)); print('launched', flush=True); "
+            "torch.cuda.synchronize(); print('{}')")
+    run = run_child([sys.executable, "-c", code], 20, echo=False)
+    assert run["status"] == "cut", run
+    assert "launched" in run["tail"] and run["seconds"] < 20 + 20

@@ -81,12 +81,18 @@ def test_results_files_byte_identical(models_f32, tmp_path):
 
 
 def test_unported_options_raise():
+    """The JAX package's TPU-only options are not ported and raise: its
+    ``platform`` argument (the port takes ``device``) and the Pallas switch
+    among the executor overrides (the port's is ``use_stencil_kernel``).
+    ``checkpoint`` and ``profile_dir`` are ported (tests/test_torch_checkpoint.py)."""
     m = remo3d_tpu_torch.Model(["A2.0M0.5N"])
     m.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
     m.initialize_workers()
-    for kwargs in ({"checkpoint": "x.npz"}, {"profile_dir": "trace"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            m.simulate_logs(DEPTHS, device="cpu", verbose=False, **kwargs)
+    with pytest.raises(TypeError, match="platform"):
+        m.simulate_logs(DEPTHS, device="cpu", verbose=False, platform="cpu")
+    with pytest.raises(TypeError, match="use_pallas_stencil"):
+        m.simulate_logs(DEPTHS, device="cpu", verbose=False,
+                        executor_overrides={"use_pallas_stencil": True})
 
 
 def test_device_default_needs_a_card(monkeypatch):

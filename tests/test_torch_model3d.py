@@ -4,8 +4,9 @@ on the CPU at dip 30, Benchmark model 3's stack (10 | 100 | 10 ohm-m, beds
 crossing the axis at 10.77 and 14.23 m), 2 tools x 3 depths through the bed, on
 a 49x5x17 grid, both through the ADI line-preconditioned CG (the CPU default of
 both packages is the block-direct solver, tests/test_torch_model_direct.py, so
-both sides ask for "adi"; the JAX package's native C++ mesher is switched off
-so both mesh with numpy).
+both sides ask for "adi"). Both mesh natively by default (the shared C++
+builders of native/); a second case switches both to their numpy builders, so
+each builder keeps a parity test.
 
 float32 readouts agree within 2e-4 relative (two CG solves stopped at tol 1e-5
 in float32 that sum in different orders). The float64 case is
@@ -35,23 +36,31 @@ DEPTHS = np.array([11.5, 12.5, 13.5])
 GRID = dict(nz=49, np_=5, nr=17, n_wall_cells=3, n_blend_cells=2)
 
 
-def run_both(dtype, tol):
-    """(port model, JAX model) on the same inputs and solver configuration."""
-    common = dict(borehole_geometry_type="radius", dip=30, dtype=dtype, tol=tol, verbose=False)
+def run_both(dtype, tol, native=True):
+    """(port model, JAX model) on the same inputs and solver configuration,
+    both meshed natively or both with numpy."""
+    common = dict(borehole_geometry_type="radius", dip=30, dtype=dtype, tol=tol, verbose=False,
+                  executor_overrides={"precond3d": "adi", "use_native_mesher": native})
     port = remo3d_tpu_torch.Model.compute_synthetic_logs(
-        TOOLS, DEPTHS, FORMATION, BOREHOLE, grid_spec3d=TSpec(**GRID), device="cpu",
-        executor_overrides={"precond3d": "adi"}, **common)
+        TOOLS, DEPTHS, FORMATION, BOREHOLE, grid_spec3d=TSpec(**GRID), device="cpu", **common)
     ref = remo3d_tpu.Model.compute_synthetic_logs(
-        TOOLS, DEPTHS, FORMATION, BOREHOLE, grid_spec3d=JSpec(**GRID), platform="cpu",
-        executor_overrides={"precond3d": "adi", "use_native_mesher": False}, **common)
+        TOOLS, DEPTHS, FORMATION, BOREHOLE, grid_spec3d=JSpec(**GRID), platform="cpu", **common)
     return port, ref
 
 
 def test_float32_dip30_log_matches_jax():
-    port, ref = run_both("float32", None)
+    check_float32_log(*run_both("float32", None), mesher="native")
+
+
+def test_float32_dip30_log_matches_jax_numpy_mesher():
+    check_float32_log(*run_both("float32", None, native=False), mesher="numpy")
+
+
+def check_float32_log(port, ref, mesher):
     assert list(port.logs) == list(ref.logs) == TOOLS
     report = port.last_report
     assert report["n_failed_solves"] == 0 and report["device"] == "cpu"
+    assert report["mesher"] == mesher
     assert all(0 < c["iterations"] < 1000 for c in report["chunks"])
     for t in TOOLS:
         np.testing.assert_array_equal(port.logs[t][:, 0], ref.logs[t][:, 0])
