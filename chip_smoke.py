@@ -76,9 +76,27 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
 24. two ranks over gloo on the one card: the log of phase 4 split on the batch
     axis, a 4-depth 3D log of one batch split on the solve axis, both against
     the single-process logs; and a rank at world size 1, bitwise equal to no
-    process group.
+    process group;
+25. the float32 spread on the card (``validation.arithmetic_parity``): the
+    log of phase 4 in float32 (multigrid) against float64 (direct, tol
+    1e-10), held to the JAX package's spread of the same workload; the BM3
+    dip-30 (ra3d) and the axis-potential (u2d) spreads beside its figures;
+26. the examples (``remo3d_tpu_torch.examples``) through their ``main``:
+    Example_01 (6 tools x 251 depths on 761x161), Example_02's options,
+    Example_03 (BM3 at dip 30), whose results files are read back, and the
+    inversions of Example_04 (2D, 10 parameters) and Example_05 (3D), which
+    must recover every resistivity within 0.1%;
+27. the oracle scripts (``remo3d_tpu_torch.validation``): BM3 at dips
+    15-60 against the rotated layered medium, and the BM2-like spot depths,
+    the BM1-like / BM2-like sweep (``--quick``) and the BM2-like invaded beds
+    under a varying caliper against the float64 finite-volume oracle (scipy,
+    on the host's cores), each beside the JAX package's README figure;
+28. float64 potentials on the card against the finite-volume oracle at one
+    BM1-like source depth, the 1x / 2x / 4x refinement ladder's observed
+    order, and the BM3 dip ladder 0-60 NaN-free within its residual bound.
+The launch counts of K1 and K2 are read around every script of 25-28.
 
-Every phase group (3-6, 7-11, 12-15, 16-19, 20-24) runs in a child process
+Every phase group (3-6, 7-11, 12-15, 16-19, 20-24, 25-28) runs in a child process
 (``python3 chip_smoke.py --phase <group>``) under ``timeout -k 10 <limit>``
 (:data:`GROUP_LIMITS`, about three times the group's time on an H100), so a
 hung launch fails the run with a printed line instead of blocking it; the
@@ -88,7 +106,8 @@ kernels line. The line before the last is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone, and
-``python3 chip_smoke.py --diff`` phases 16-19.
+``python3 chip_smoke.py --diff`` phases 16-19 (``--phase 25-28`` runs one
+group as a child would).
 ``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
 one warm phase-8 log with torch.profiler: kernel time by part and the device
 busy share (the union of kernel intervals over the wall).
@@ -121,32 +140,22 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-EXAMPLE01_TOOLS = ["B5.7A0.4M", "B4.48A1.62M", "M1.0A0.1B", "A2.0M0.5N", "N0.5M2.0A", "M4.0A0.5B"]
-# BM2-like invaded formation: TOP, BOTTOM, FZ_RADIUS, FZ_VALUE, UZ_VALUE (m, ohm-m).
-FORMATION = np.array(
-    [
-        [-100.0, 5.0, np.nan, np.nan, 10.0],
-        [5.0, 15.0, 0.2, 5.0, 100.0],
-        [15.0, 25.0, np.nan, np.nan, 10.0],
-        [25.0, 35.0, 0.35, 5.0, 100.0],
-        [35.0, 45.0, np.nan, np.nan, 10.0],
-        [45.0, 55.0, 0.5, 5.0, 100.0],
-        [55.0, 200.0, np.nan, np.nan, 10.0],
-    ]
+# The inline models (the BM2-like invaded formation, Benchmark model 3,
+# Example_05's dipping bed) live in remo3d_tpu_torch/validation/models.py.
+from remo3d_tpu_torch.validation.models import BM2_BOREHOLE as BOREHOLE  # noqa: E402
+from remo3d_tpu_torch.validation.models import BM2_FORMATION as FORMATION  # noqa: E402
+from remo3d_tpu_torch.validation.models import (  # noqa: E402
+    BM3_BOREHOLE,
+    BM3_FORMATION,
+    EXAMPLE01_TOOLS,
 )
-BOREHOLE = np.array([[-100.0, 0.1, 1.0], [200.0, 0.1, 1.0]])
+from remo3d_tpu_torch.validation.models import DIP_BED_BOREHOLE as DIFF_BOREHOLE_3D  # noqa: E402
+from remo3d_tpu_torch.validation.models import DIP_BED_DEPTHS as DIFF_DEPTHS_3D  # noqa: E402
+from remo3d_tpu_torch.validation.models import DIP_BED_FORMATION as DIFF_FORMATION_3D  # noqa: E402
+from remo3d_tpu_torch.validation.models import DIP_BED_TOOL as DIFF_TOOL_3D  # noqa: E402
+
 DEPTHS = np.arange(0.0, 10.01, 0.1)
 KERNEL_SHAPES = [(96, 5, 761, 161), (96, 5, 381, 81), (1, 2, 7, 5), (2, 3, 37, 23)]
-# Benchmark model 3 (benchmarks/bm3_oracle.py): 10 | 100 | 10 ohm-m, beds
-# crossing the borehole axis at 10.77 and 14.23 m; 0.1 m borehole, 1 ohm-m mud.
-BM3_FORMATION = np.array(
-    [
-        [-100.0, 10.77, np.nan, np.nan, 10.0],
-        [10.77, 14.23, np.nan, np.nan, 100.0],
-        [14.23, 200.0, np.nan, np.nan, 10.0],
-    ]
-)
-BM3_BOREHOLE = np.array([[-100.0, 0.1, 1.0], [200.0, 0.1, 1.0]])
 TOOLS_3D = ["A2.0M0.5N"]
 DEPTHS_3D = np.arange(5.0, 29.76, 0.25)  # 100 measurement points
 DIP = 30
@@ -173,13 +182,13 @@ LOG3D_REL_F64 = 1e-8
 UNIFORM3D_REL = 1e-3
 # A float32 direct-preconditioned log against the float64 direct log of the
 # same plan (tol 1e-10, so meshing, assembly and load are float64 too): on the
-# 761x161 grid the float32 multigrid log itself sits 5.6e-4 from it (tool
-# M4.0A0.5B; the others 2.0e-4 to 3.4e-4) and the direct logs 5.6e-4 to 6.2e-4,
-# measured on an H100. The JAX package's float32 log of this workload sits up
-# to 3.19e-4 from its float64 one (CPU, tests/test_torch_spread.py run as a
-# script): the rest is the port's float32 2D operator (ROADMAP C2). Against the float32 multigrid (2D) or "adi" (3D) log,
-# which carries its own such spread: 6e-4 in 2D (1.3x the largest reading on an
-# H100, 4.65e-4 for the chain), LOG3D_REL_PAIR in 3D.
+# 761x161 grid the float32 multigrid log itself sits 1.15e-4 from it (tool
+# M4.0A0.5B; the others 4.6e-5 to 7.1e-5) and the direct logs 1.13e-4 to
+# 1.17e-4, measured on an H100 (5.6e-4 to 6.2e-4 before the port's float32 2D
+# operator closed its zero row sums and K1 took the difference form; the JAX
+# package's float32 log of this workload sits up to 3.19e-4 from its float64
+# one). Against the float32 multigrid (2D) or "adi" (3D) log, which carries
+# its own such spread: 6e-4 in 2D, LOG3D_REL_PAIR in 3D.
 LOG64_REL = 1e-3
 DIRECT_REL = {"2D": (LOG64_REL, 6e-4), "3D": (LOG64_REL, LOG3D_REL_PAIR)}
 # CG iterations per chunk under an exact direct factor ("scan", "bcr"): 3-4
@@ -197,16 +206,6 @@ FP_PASSES = {"2D": 32, "3D": 8}
 # bed of examples/Example_05_dip_inversion.py.
 DIFF_TOOLS = ["A2.0M0.5N", "B5.7A0.4M"]
 DIFF_DEPTHS = np.arange(0.5, 24.6, 1.0)
-DIFF_FORMATION_3D = np.array(
-    [
-        [-1000.0, 1.0, np.nan, np.nan, 10.0],
-        [1.0, 2.2, 0.4, 5.0, 100.0],
-        [2.2, 1000.0, np.nan, np.nan, 10.0],
-    ]
-)
-DIFF_BOREHOLE_3D = np.array([[-1000.0, 0.1, 1.0], [1000.0, 0.1, 1.0]])
-DIFF_TOOL_3D = "A0.4M0.1N"
-DIFF_DEPTHS_3D = np.arange(0.4, 2.81, 0.2)
 # The JAX package's own bounds (tests/test_diff.py): forward against the
 # direct-preconditioned Model log 5e-4 (2D) and 1e-4 (3D), reverse against
 # forward mode 2e-3 of scale, finite differences 5% (2D) and 1% (3D); card
@@ -236,14 +235,35 @@ CKPT_CHUNK, CKPT_BREAK_AT, CKPT_REL = 24, 3, 1e-6
 RANKS_REL, RANKS_DTYPE = 1e-5, "float64"
 DEPTHS_RANKS_3D = DEPTHS_3D[:4]
 
+# Phases 25-28: the examples and validation scripts. Phase 25 holds phase 4's float32 log to the
+# JAX package's float32-vs-float64 spread of the same workload (CPU,
+# tests/test_torch_spread.py run as a script): max 3.19e-4, rms 9.403e-5.
+C2_MAX, C2_RMS = 3.19e-4, 9.403e-5
+# The inversions of examples 04 and 05: every resistivity within 0.1%.
+INVERSION_WORST, INVERSION_MISFIT = 1e-3, 1e-4
+# Phase 27: the oracle scripts. bm3_oracle per dip (dip 60 on high_dip);
+# bm2_oracle and oracle_sweep; bm2_dip_oracle 2D vs FV and 3D at dip->0 vs 2D.
+BM3_ORACLE_REL = {15: 5e-3, 30: 5e-3, 45: 5e-3, 60: 6e-3}
+FV_ORACLE_REL = 5e-3
+BM2_DIP_FV_REL, BM2_DIP_GAP = 5e-3, 0.03
+# Phase 28: float64 potentials against the FV oracle; the refinement ladder's
+# observed order (2 for Q1 elements).
+POTENTIAL_FV_REL, ORDER_RANGE = 1e-2, (1.8, 2.3)
+# The JAX package's README figures, printed beside the port's: the float32
+# spreads (3D Ra; 2D axis potentials max / mean) and bm3_oracle's worst
+# (over dips 15-45 on the default grid; dip 60 on high_dip).
+JAX_RA3D, JAX_U2D = 1.1e-4, (6.9e-5, 2.4e-5)
+JAX_BM3 = {15: "0.43% over dips 15-45", 30: "0.43% over dips 15-45",
+           45: "0.43% over dips 15-45", 60: "0.50%"}
+
 # Time limit (s) of each phase group's child: about three times the group's
-# time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~170-230
-# s, 16-19 ~70 s, 20-24 ~105 s) plus the child's start.
+# time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~150-230
+# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180 s) plus the child's start.
 GROUP_LIMITS = {
-    "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420,
+    "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420, "25-28": 540,
     "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600, "probe": 600,
 }
-GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24"]
+GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28"]
 MODES = {"--screen": "12-15", "--diff": "16-19", "--profile3d": "profile3d",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
          "--tune": "tune", "--probe": "probe"}
@@ -542,7 +562,7 @@ def check_k1(torch):
 
     return check_and_time(
         torch, "K1", KERNEL_SHAPES, make, stencil2d.stencil_apply_half_2d_plain,
-        stencil2d.stencil_apply_half_2d, stencil2d.half_planes_2d, 5, 18,
+        stencil2d.stencil_apply_half_2d, stencil2d.half_planes_2d, 5, 25,
     )
 
 
@@ -1346,11 +1366,10 @@ def diff_3d(torch, card):
 
 def diff_cpu_and_inversion(torch, card):
     """Phase 19: forward and Jacobian of the 2D log on a 193x41 grid, card
-    against CPU; then the Levenberg-Marquardt loop of
-    examples/Example_05_dip_inversion.py on its 49x7x21 grid, on the card."""
+    against CPU; then Example_05's inversion
+    (``remo3d_tpu_torch.examples.example_05_dip_inversion``) on the card."""
     from remo3d_tpu_torch import DifferentiableLog, Model
     from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
-    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
 
     model = Model(DIFF_TOOLS)
     model.set_model_parameters(FORMATION, BOREHOLE, borehole_geometry_type="radius")
@@ -1369,40 +1388,15 @@ def diff_cpu_and_inversion(torch, card):
     if not (rel <= DIFF_CPU_REL and jac <= DIFF_CPU_JAC):
         raise AssertionError(f"diff card vs CPU: {rel:.3e}, {jac:.3e}")
 
-    model = Model([DIFF_TOOL_3D])
-    model.set_model_parameters(DIFF_FORMATION_3D, DIFF_BOREHOLE_3D,
-                               borehole_geometry_type="radius", dip=DIP)
-    dlog = DifferentiableLog(
-        model, DIFF_DEPTHS_3D, grid_spec3d=GridSpec3D(nz=49, np_=7, nr=21, n_wall_cells=3,
-                                                      n_blend_cells=2),
-        domain_radius=10.0, chunk_size=4, device="cuda")
-    p_true = np.asarray(dlog.params0, dtype=np.float64)
-    obs = dlog.forward(p_true).cpu().numpy()
-    mask = np.isfinite(obs)
-    # Levenberg-Marquardt in log-resistivity space, as the example runs it.
-    x = np.log(np.full_like(p_true, 20.0))
-    lam, misfit_prev, misfit = 1e-2, np.inf, np.inf
-    t0 = time.perf_counter()
-    for it in range(15):
-        p = np.exp(x)
-        sim = np.nan_to_num(dlog.forward(p).cpu().numpy())
-        J = np.nan_to_num(dlog.jacobian(p).cpu().numpy())
-        r = (np.log(sim[mask]) - np.log(obs[mask])).astype(np.float64)
-        A = (J * p[None, None, :])[mask] / sim[mask][:, None]
-        misfit = float(np.sqrt(np.mean(r**2)))
-        log(f"diff inversion iter {it:2d}: rms log-misfit {misfit:.5f}, max parameter error "
-            f"{np.abs(p / p_true - 1).max() * 100:6.2f}%")
-        if misfit < 1e-4:
-            break
-        lam = max(lam * (0.3 if misfit < misfit_prev else 10.0), 1e-6)
-        misfit_prev = misfit
-        H = A.T @ A + lam * np.eye(A.shape[1])
-        x = x - np.linalg.solve(H, A.T @ r)
-    worst = float(np.abs(np.exp(x) / p_true - 1).max())
-    log(f"diff inversion on {card}: {it + 1} iterations in {time.perf_counter() - t0:.3f} s, "
-        f"rms log-misfit {misfit:.2e}, worst parameter error {worst:.3%} (limit 0.1%)")
-    if not (misfit < 1e-4 and worst < 1e-3):
-        raise AssertionError(f"diff inversion: misfit {misfit:.2e}, worst error {worst:.3%}")
+    # The Levenberg-Marquardt inversion of Example_05 on its 49x7x21 grid.
+    from remo3d_tpu_torch.examples import example_05_dip_inversion
+
+    r = example_05_dip_inversion.main(device="cuda")
+    log(f"diff inversion on {card}: {r['iterations']} iterations in {r['seconds']:.3f} s, "
+        f"rms log-misfit {r['misfit']:.2e}, worst parameter error {r['worst']:.3%} (limit 0.1%)")
+    if not (r["misfit"] < 1e-4 and r["worst"] < 1e-3):
+        raise AssertionError(f"diff inversion: misfit {r['misfit']:.2e}, worst error "
+                             f"{r['worst']:.3%}")
 
 
 def run_diff(torch, card):
@@ -1951,6 +1945,147 @@ def run_rest(torch, card):
     return out
 
 
+def counted(torch, out: dict, key: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with the kernels' counts set to 0 just before
+    and read just after: they go into ``out[kernel]["launches_" + key]``."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for kernel, n in counts.items():
+        out[kernel][f"launches_{key}"] = n
+    log(f"{key}: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    return result
+
+
+def c2_on_card(torch, card, out):
+    """Phase 25: the float32 2D log of phase 4 (multigrid, the CUDA default)
+    against float64 (direct, tol 1e-10), held to the JAX package's spread of
+    the same workload; the 3D and the potential spreads beside the JAX
+    package's README figures."""
+    from remo3d_tpu_torch.validation import arithmetic_parity
+
+    s = counted(torch, out, "ra2d", arithmetic_parity.ra2d, device="cuda")
+    log(f"C2 on {card}: float32 multigrid vs float64 direct, {len(DEPTHS)} depths x "
+        f"{len(EXAMPLE01_TOOLS)} tools: max {s['max']:.3e} (limit {C2_MAX:g}), rms "
+        f"{s['rms']:.4e} (limit {C2_RMS:g}); per tool " + ", ".join(
+            f"{t} {v:.3e} / rms {float(np.sqrt(np.mean(s['rel'][:, i] ** 2))):.3e}"
+            for i, (t, v) in enumerate(zip(EXAMPLE01_TOOLS, s["per_tool"]))))
+    s3 = counted(torch, out, "ra3d", arithmetic_parity.ra3d, device="cuda")
+    log(f"ra3d on {card}: BM3 dip 30, float32 vs float64 (direct): max {s3['max']:.3e} "
+        f"(the JAX package: {JAX_RA3D:g})")
+    u_max, u_mean = counted(torch, out, "u2d", arithmetic_parity.u2d, device="cuda")
+    log(f"u2d on {card}: axis potentials float32 vs float64: max {u_max:.2e}, mean "
+        f"{u_mean:.2e} (the JAX package: {JAX_U2D[0]:g} / {JAX_U2D[1]:g})")
+    if not (s["max"] <= C2_MAX and s["rms"] <= C2_RMS):
+        raise AssertionError(f"C2: spread max {s['max']:.3e}, rms {s['rms']:.3e}")
+
+
+def run_examples(torch, card, out):
+    """Phase 26: examples 01-05 through their ``main`` on the card, each
+    results file read back (inside the examples), the inversions within 0.1%."""
+    from remo3d_tpu_torch.examples import (
+        example_01,
+        example_02,
+        example_03_dip,
+        example_04_inversion,
+        example_05_dip_inversion,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn, kernel in ((("ex01", example_01.main, "stencil2d_half"),
+                                 ("ex02", example_02.main, "stencil2d_half"),
+                                 ("ex03", example_03_dip.main, "stencil3d_half"))):
+            model, folder = counted(torch, out, key, fn, output_folder=os.path.join(tmp, key),
+                                    device="cuda")
+            vals = np.concatenate([v[:, 1] for v in model.logs.values()])
+            log(f"{key} on {card}: {len(vals)} readouts, {model.last_report['n_failed_solves']} "
+                f"failed solves, chunks {len(model.last_report['chunks'])}, Ra "
+                f"{np.nanmin(vals):.3f}..{np.nanmax(vals):.3f}")
+            if not np.isfinite(vals).all() or out[kernel][f"launches_{key}"] == 0:
+                raise AssertionError(f"{key}: {int((~np.isfinite(vals)).sum())} non-finite "
+                                     f"readouts, {kernel} launches {out[kernel]}")
+    faults = []
+    for key, fn in (("ex04", example_04_inversion.main), ("ex05", example_05_dip_inversion.main)):
+        r = counted(torch, out, key, fn, device="cuda")
+        log(f"{key} on {card}: {r['iterations']} iterations, rms log-misfit {r['misfit']:.2e}, "
+            f"worst parameter error {r['worst']:.4%} (limit {INVERSION_WORST:.1%})")
+        if not (r["misfit"] < INVERSION_MISFIT and r["worst"] < INVERSION_WORST):
+            faults.append(f"{key}: misfit {r['misfit']:.2e}, worst {r['worst']:.3%}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def run_validation(torch, card, out):
+    """Phase 27: the oracle scripts on the card (the FV oracle on the host's
+    cores), each number beside the JAX package's README figure."""
+    from remo3d_tpu_torch.validation import bm2_dip_oracle, bm2_oracle, bm3_oracle, oracle_sweep
+
+    faults = []
+    worst = counted(torch, out, "bm3_oracle", bm3_oracle.main, device="cuda")
+    for dip, w in worst.items():
+        log(f"bm3_oracle on {card}: dip {dip}: worst {w:.3%} (limit {BM3_ORACLE_REL[dip]:.1%}; the "
+            f"JAX package: {JAX_BM3[dip]})")
+        if not w <= BM3_ORACLE_REL[dip]:
+            faults.append(f"bm3_oracle dip {dip}: {w:.3%}")
+    w = counted(torch, out, "bm2_oracle", bm2_oracle.main, device="cuda")
+    log(f"bm2_oracle on {card}: worst {w:.3%} (limit {FV_ORACLE_REL:.1%}; the JAX package: 0.19%)")
+    if not w <= FV_ORACLE_REL:
+        faults.append(f"bm2_oracle: {w:.3%}")
+    rows = counted(torch, out, "oracle_sweep", oracle_sweep.main, quick=True, device="cuda")
+    w = max(r[2] for r in rows)
+    log(f"oracle_sweep --quick on {card}: worst {w:.3%} (limit {FV_ORACLE_REL:.1%}; the JAX "
+        f"package: 0.16% over its full sweep)")
+    if not w <= FV_ORACLE_REL:
+        faults.append(f"oracle_sweep: {w:.3%}")
+    r = counted(torch, out, "bm2_dip_oracle", bm2_dip_oracle.main, device="cuda")
+    log(f"bm2_dip_oracle on {card}: 2D vs FV {r['fv_worst']:.3%} (limit {BM2_DIP_FV_REL:.1%}; the "
+        f"JAX package: 0.21%), 3D at dip->0 vs 2D max {r['gap_max']:.3%} (limit "
+        f"{BM2_DIP_GAP:.0%}; the JAX package: 2.35%), mean {r['gap_mean']:.3%}")
+    if not (r["fv_worst"] <= BM2_DIP_FV_REL and r["gap_max"] <= BM2_DIP_GAP):
+        faults.append(f"bm2_dip_oracle: {r['fv_worst']:.3%}, {r['gap_max']:.3%}")
+    if faults:  # after every script ran
+        raise AssertionError("validation: " + "; ".join(faults))
+
+
+def run_parity(torch, card, out):
+    """Phase 28: float64 potentials on the card against the FV oracle at one
+    BM1-like source depth, the 1x / 2x / 4x refinement ladder, then the
+    benchmark-model dip ladder NaN-free."""
+    from remo3d_tpu_torch.validation import bm_models, potential_parity
+
+    w = counted(torch, out, "potential_oracle", potential_parity.run_oracle, "BM1-like",
+                [potential_parity.CONVERGE_DEPTH], device="cuda")
+    log(f"potential_parity on {card}: float64 FEM vs FV {w:.2e} (limit {POTENTIAL_FV_REL:g}; the "
+        f"JAX package: 5.5e-3 over its sweep)")
+    c = counted(torch, out, "potential_converge", potential_parity.run_converge, device="cuda")
+    lo, hi = float(np.min(c["order"])), float(np.max(c["order"]))
+    log(f"potential_parity on {card}: observed order {lo:.3f}..{hi:.3f} (limits {ORDER_RANGE}; "
+        f"the JAX package: 2.08), deltas {c['deltas']}, remaining at 4x "
+        f"{float(np.max(c['remaining'])):.2e}")
+    counted(torch, out, "bm_models", bm_models.run_bm3, device="cuda")
+    if not (w <= POTENTIAL_FV_REL and ORDER_RANGE[0] <= lo and hi <= ORDER_RANGE[1]):
+        raise AssertionError(f"potential parity: FV {w:.2e}, order {lo:.3f}..{hi:.3f}")
+
+
+def run_scripts(torch, card):
+    """Phases 25-28; returns the launch counts per kernel and script. A gate
+    that fails is raised after the last phase, with every other one."""
+    out = {"stencil2d_half": {}, "stencil3d_half": {}}
+    faults = []
+    for phase in (c2_on_card, run_examples, run_validation, run_parity):  # 25, 26, 27, 28
+        try:
+            phase(torch, card, out)
+        except AssertionError as e:
+            log(f"FAILED {phase.__name__}: {e}")
+            faults.append(str(e))
+    if faults:
+        raise AssertionError("phases 25-28: " + "; ".join(faults))
+    return out
+
+
 def check_checkout(torch):
     """Every process of this script: a card is visible, the package is this
     checkout's, JAX was not imported."""
@@ -1999,6 +2134,8 @@ def run_group(group: str) -> dict:
         return {"contraction": timings, "launches": launches}
     if group == "20-24":
         return {"launches": run_rest(torch, card)}
+    if group == "25-28":
+        return {"launches": run_scripts(torch, card)}
     {"profile3d": profile_3d, "profile-direct": profile_direct, "tune-direct": tune_direct,
      "tune": tune, "probe": probe}[group](torch, card)
     return {}
@@ -2085,8 +2222,9 @@ def main() -> int:
     log(json.dumps({"contraction": results["16-19"]["contraction"]}))
     k1.update(results["16-19"]["launches"]["stencil2d_half"])
     k2.update(results["16-19"]["launches"]["stencil3d_half"])
-    k1.update(results["20-24"]["launches"]["stencil2d_half"])
-    k2.update(results["20-24"]["launches"]["stencil3d_half"])
+    for g in ("20-24", "25-28"):
+        k1.update(results[g]["launches"]["stencil2d_half"])
+        k2.update(results[g]["launches"]["stencil3d_half"])
 
     log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
     log(card)

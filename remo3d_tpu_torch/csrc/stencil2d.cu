@@ -4,17 +4,21 @@
 // (stencil_apply_pallas_2d, body _kernel2d): the CG matvec and the multigrid
 // operator on the two finest levels of the 2D axisymmetric solve.
 //
-// Storage: C_half (B, 5, NZ, NR) holds the diagonal and the four positive
-// offsets d = (0,1), (1,-1), (1,0), (1,1) (remo3d_tpu_torch.kernels.stencil2d.
-// half_planes_2d); u and y are (B, S, NZ, NR). The FEM stencil is symmetric,
-// C_d(n) == C_{-d}(n+d), so each offset plane serves two couplings. Gather form,
-// no atomics:
+// Storage: C_half (B, 5, NZ, NR) holds the row sum R of the operator and the
+// four positive offsets d = (0,1), (1,-1), (1,0), (1,1) (remo3d_tpu_torch.
+// kernels.stencil2d.half_planes_2d); u and y are (B, S, NZ, NR). The FEM
+// stencil is symmetric, C_d(n) == C_{-d}(n+d), so each offset plane serves two
+// couplings. Gather form in differences, no atomics:
 //
-//   y(n) = C0(n) u(n) + sum_d [ C_d(n) u(n+d) + C_d(n-d) u(n-d) ]
+//   y(n) = R(n) u(n) + sum_d [ C_d(n) (u(n+d) - u(n)) + C_d(n-d) (u(n-d) - u(n)) ]
 //
-// with every term present only where its neighbour lies inside the grid.
+// with every coupling present only where its neighbour lies inside the grid.
+// It is the diagonal form C0 u(n) + sum_d [C_d(n) u(n+d) + C_d(n-d) u(n-d)]
+// with C0 = R - (the couplings), but rounds at eps |C_d| |u(n+d) - u(n)|
+// instead of eps |C0| |u|: R vanishes away from the Dirichlet nodes and u is
+// smooth, so the diagonal form cancels most of each row (kernels/stencil2d.py).
 //
-// Bound: device-memory bytes. Two flops per 4-byte coefficient or solution
+// Bound: device-memory bytes. Three flops per 4-byte coefficient or solution
 // value; the least traffic is the 5 coefficient planes once per batch plus u
 // read and y written once per solve, about 4*N*B*(5 + 2S) bytes per apply for
 // N = NZ*NR in float32 (twice that in float64).
@@ -25,7 +29,7 @@
 // solves of the batch in shared memory with cp.async (slab_stage.cuh says how
 // the unaligned start is handled), zero-filling the halo row that lies outside
 // the grid and a small margin around the tile. Then each thread walks over the
-// tile's nodes, 256 apart: it loads the node's 9 coefficients (the diagonal,
+// tile's nodes, 256 apart: it loads the node's 9 coefficients (the row sum,
 // C_d(n) and the mirrored C_d(n-d), zero where the neighbour is outside the
 // grid) into registers once and loops over the S solves, reading the 9 values
 // of u from shared memory. The coefficient planes leave device memory once per
@@ -36,9 +40,10 @@
 // solves are taken in groups of G < S.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, at
-// (B, S, NZ, NR) = (96, 5, 761, 161) in float32 (chip_smoke.py --tune): 64
-// registers, no spill, TZ = 12 with 45,360 B of shared memory and four resident
-// blocks per SM, 0.292 ms per apply against a bound of 0.211 ms.
+// (B, S, NZ, NR) = (96, 5, 761, 161) in float32 (chip_smoke.py phases 2-3):
+// 63 registers, no spill, TZ = 12 with 45,360 B of shared memory and four
+// resident blocks per SM, 0.301 ms per apply against a bound of 0.211 ms (the
+// diagonal form took 0.290 ms).
 //
 // The masked terms multiply a zero coefficient with whatever finite value the
 // tile holds at that offset, so a solve whose u holds Inf or NaN comes out NaN
@@ -131,12 +136,13 @@ stencil2d_half_kernel(const T* __restrict__ C, const T* __restrict__ u,
         const unsigned int first = first0 + static_cast<unsigned int>(s0 + g) * N;
         const T* un =
             ubuf + g * stride + margin + slab::shift(u, first) + (lz + 1) * NR + r;
-        T acc = c0 * un[0];
+        const T u0 = un[0];
+        T acc = c0 * u0;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const int off = dzs[k] * NR + drs[k];
-          acc += cp[k] * un[off];
-          acc += cm[k] * un[-off];
+          acc += cp[k] * (un[off] - u0);
+          acc += cm[k] * (un[-off] - u0);
         }
         y[(static_cast<long long>(b) * S + s0 + g) * N + n] = acc;
       }

@@ -3,15 +3,25 @@
 torch version and the dispatching wrapper.
 
 Port of ``remo3d_tpu.ops.pallas_stencil2d`` (``stencil_apply_pallas_2d``). The
-assembled FEM stencil is symmetric (``C[n, d] == C[n+d, -d]``), so only the
-diagonal and the 4 lexicographically positive offset planes are stored, and each
-offset plane serves two couplings:
+assembled FEM stencil is symmetric (``C[n, d] == C[n+d, -d]``), so only the 4
+lexicographically positive offset planes are stored, each serving two
+couplings, beside the row sum R(n) of the operator. The apply is in
+difference form:
 
-    y(n) = C0(n) u(n) + sum_d [ C_d(n) u(n+d) + C_d(n-d) u(n-d) ]
+    y(n) = R(n) u(n) + sum_d [ C_d(n) (u(n+d) - u(n)) + C_d(n-d) (u(n-d) - u(n)) ]
 
-with zero fill at every grid edge. The kernel (``csrc/stencil2d.cu``) gives a
-block a tile of whole rows, stages the u of all S solves of that tile in shared
-memory and keeps a node's 9 coefficients in registers across the S solves.
+with every coupling present only where its neighbour lies inside the grid.
+In exact arithmetic it is the diagonal form ``C0(n) u(n) + sum_d [...]``. In
+float32 it is not: the FEM operator annihilates constants (R = 0 away from
+the Dirichlet nodes), and the axis potentials u are large and smooth, so the
+diagonal form cancels ~1e4 times the result in every row and rounds at
+``eps |C0| |u|``, while the difference form rounds at ``eps |C_d| |u(n+d) -
+u(n)|``. That rounding is what limits a float32 CG solve: on the 761x161
+grid the float32 readouts sit about 10x closer to the float64 ones through
+this form (PERF.md, C2; ``tests/test_torch_spread.py --chunk``). The kernel
+(``csrc/stencil2d.cu``) gives a block a tile of whole rows, stages the u of
+all S solves of that tile in shared memory and keeps a node's 9 coefficients
+in registers across the S solves.
 
 :func:`stencil_apply_half_2d` sends a tensor that lies on the CPU to
 :func:`stencil_apply_half_2d_plain`; any other tensor launches the kernel or
@@ -27,6 +37,7 @@ JAX package's apply).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -41,9 +52,21 @@ _INFO_ENTRY = {torch.float32: "stencil2d_half_info_f32", torch.float64: "stencil
 
 
 def half_planes_2d(C: torch.Tensor) -> torch.Tensor:
-    """(..., NZ, NR, 3, 3) stencil -> (..., 5, NZ, NR) contiguous half storage."""
-    planes = [C[..., 1, 1]] + [C[..., dz + 1, dr + 1] for dz, dr in POS_OFFSETS_2D]
-    return torch.stack(planes, dim=-3).contiguous()
+    """(..., NZ, NR, 3, 3) stencil -> (..., 5, NZ, NR) contiguous half storage:
+    the row sum R, then the 4 positive offset planes (the JAX package's half
+    storage holds the diagonal where this holds R). R is summed in float64 in
+    a fixed order (the diagonal, then each offset's direct and mirrored
+    coupling where its neighbour lies inside the grid) and rounded once, so
+    every device computes the same R."""
+    nz, nr = C.shape[-4], C.shape[-3]
+    planes = [C[..., dz + 1, dr + 1] for dz, dr in POS_OFFSETS_2D]
+    row_sum = C[..., 1, 1].double()
+    for c, (dz, dr) in zip(planes, POS_OFFSETS_2D):
+        (zd, zs), (rd, rs) = _window(dz, nz), _window(dr, nr)
+        inside = c[..., zd, rd].double()
+        for z, r in ((zd, rd), (zs, rs)):  # C_d(n) at n, then mirrored at n+d
+            row_sum = row_sum + F.pad(inside, (r.start, nr - r.stop, z.start, nz - z.stop))
+    return torch.stack([row_sum.to(C.dtype)] + planes, dim=-3).contiguous()
 
 
 def _window(d: int, n: int):
@@ -52,21 +75,23 @@ def _window(d: int, n: int):
 
 
 def stencil_apply_half_2d_plain(C_half: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """y = A u from half storage, in plain torch (shifted slices).
+    """y = A u from half storage in difference form, in plain torch (shifted
+    slices).
 
-    C_half: (B, 5, NZ, NR); u: (B, S, NZ, NR). The per-element order of the sums
-    is the kernel's: diagonal, then for each offset the direct and the mirrored
-    coupling.
+    C_half: (B, 5, NZ, NR) from :func:`half_planes_2d`; u: (B, S, NZ, NR). The
+    per-element order of the sums is the kernel's: R u(n), then for each
+    offset the direct and the mirrored coupling.
     """
     nz, nr = u.shape[-2], u.shape[-1]
     y = C_half[:, 0:1] * u
     for k, (dz, dr) in enumerate(POS_OFFSETS_2D):
         c = C_half[:, k + 1 : k + 2]  # (B, 1, NZ, NR), broadcast over S
         (zd, zs), (rd, rs) = _window(dz, nz), _window(dr, nr)
-        # Direct coupling at n: C_d(n) u(n+d).
-        y[..., zd, rd] += c[..., zd, rd] * u[..., zs, rs]
-        # Mirrored coupling at n+d: C_d(n) u(n).
-        y[..., zs, rs] += c[..., zd, rd] * u[..., zd, rd]
+        du = u[..., zs, rs] - u[..., zd, rd]  # u(n+d) - u(n)
+        # Direct coupling at n: C_d(n) (u(n+d) - u(n)).
+        y[..., zd, rd] += c[..., zd, rd] * du
+        # Mirrored coupling at n+d: C_d(n) (u(n) - u(n+d)).
+        y[..., zs, rs] -= c[..., zd, rd] * du
     return y
 
 
@@ -120,9 +145,9 @@ def _apply(C_half: torch.Tensor, u: torch.Tensor, tile_rows: int) -> torch.Tenso
 def stencil_half_coeff_grad_2d(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """d<g, A u>/dC_half, summed over the solve axis: (B, 5, NZ, NR).
 
-    Diagonal plane: sum_s g(n) u(n); offset d: sum_s [g(n) u(n+d) + g(n+d) u(n)]
-    where n and n+d lie on the grid, zero elsewhere (the apply never reads those
-    coefficients).
+    Row-sum plane: sum_s g(n) u(n); offset d: sum_s (g(n) - g(n+d)) (u(n+d) -
+    u(n)) where n and n+d lie on the grid, zero elsewhere (the apply never
+    reads those coefficients).
     """
     nz, nr = u.shape[-2], u.shape[-1]
     out = u.new_zeros((u.shape[0], 5, nz, nr))
@@ -130,7 +155,7 @@ def stencil_half_coeff_grad_2d(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor
     for k, (dz, dr) in enumerate(POS_OFFSETS_2D):
         (zd, zs), (rd, rs) = _window(dz, nz), _window(dr, nr)
         out[:, k + 1, zd, rd] = (
-            g[..., zd, rd] * u[..., zs, rs] + g[..., zs, rs] * u[..., zd, rd]
+            (g[..., zd, rd] - g[..., zs, rs]) * (u[..., zs, rs] - u[..., zd, rd])
         ).sum(1)
     return out
 

@@ -25,6 +25,8 @@ _CORNERS = ((0, 0), (1, 0), (1, 1), (0, 1))
 _XI = np.array([-1.0, 1.0, 1.0, -1.0])
 _ETA = np.array([-1.0, -1.0, 1.0, 1.0])
 _GAUSS = (-1.0 / np.sqrt(3.0), 1.0 / np.sqrt(3.0))
+# The eight off-diagonal stencil entries (di, dj), in the order their sum is taken.
+_COUPLINGS = tuple((di, dj) for di in range(3) for dj in range(3) if (di, dj) != (1, 1))
 
 
 def _cell_corner_coords(coords: torch.Tensor):
@@ -89,13 +91,27 @@ def element_matrices_2d(coords: torch.Tensor, sigma_cells: torch.Tensor) -> list
 
 
 def fold_to_stencil(K: list, nz: int, nr: int) -> torch.Tensor:
-    """Fold element matrices into the 9-point nodal stencil via shifted adds."""
+    """Fold element matrices into the 9-point nodal stencil via shifted adds.
+
+    The couplings are folded from ``K``; the diagonal is minus the sum of the
+    row's eight couplings, summed in float64 in a fixed order and rounded once.
+    Every element matrix annihilates constants, so this is the assembled
+    diagonal in exact arithmetic. Folded in float32, the diagonal would miss the
+    zero row sum by a few ulps, and the readouts amplify that about a
+    thousandfold (PERF.md, C2; tests/test_torch_spread.py).
+    """
     k00 = K[0][0]
     C = torch.zeros(k00.shape[:-2] + (nz, nr, 3, 3), dtype=k00.dtype, device=k00.device)
     for a, (ai, aj) in enumerate(_CORNERS):
         for b, (bi, bj) in enumerate(_CORNERS):
-            di, dj = bi - ai + 1, bj - aj + 1
-            C[..., ai : ai + nz - 1, aj : aj + nr - 1, di, dj] += K[a][b]
+            if a != b:
+                di, dj = bi - ai + 1, bj - aj + 1
+                C[..., ai : ai + nz - 1, aj : aj + nr - 1, di, dj] += K[a][b]
+    row_sum = None
+    for di, dj in _COUPLINGS:
+        c = C[..., di, dj].double()
+        row_sum = c if row_sum is None else row_sum + c
+    C[..., 1, 1] = (-row_sum).to(C.dtype)
     return C
 
 

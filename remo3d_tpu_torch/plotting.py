@@ -14,7 +14,8 @@ exactly — and each log track draws its curves in a single axis with a stacked,
 per-curve colored header instead of per-curve twin axes.
 
 A copy of ``remo3d_tpu.plotting`` whose matplotlib import lives inside the figure
-code, so the TSV writer runs where matplotlib is not installed.
+code: where matplotlib is not installed, ``save_results_impl`` writes the TSVs,
+says that it drew no figure, and returns the folder.
 """
 
 from __future__ import annotations
@@ -139,7 +140,14 @@ def save_results_impl(
         _write_tsv_groups(logs, measurements_to_save, output_subfolder)
 
     # ---- Figure (original layout) -------------------------------------------------
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        if output_subfolder is None:
+            raise
+        print(f"results: {output_subfolder} (Results_N.txt only: matplotlib is not installed, "
+              "so no figure was drawn)", flush=True)
+        return output_subfolder
 
     if not os.environ.get("DISPLAY"):
         matplotlib.use("Agg")
@@ -194,7 +202,8 @@ def save_results_impl(
     if model_res_lim == "auto":
         norm = LogNorm(vmin=max(finite.min(), 1e-3), vmax=finite.max())
     else:
-        norm = LogNorm(vmin=model_res_lim[0], vmax=model_res_lim[1])
+        # A log colour scale cannot start at 0 (Example_02 asks for [0, 20]).
+        norm = LogNorm(vmin=max(model_res_lim[0], 1e-3), vmax=model_res_lim[1])
     mesh = ax_model.pcolormesh(xs, zs, raster, norm=norm, cmap="viridis", shading="auto")
     ax_model.axvline(0.0, color="k", lw=0.8, ls=(0, (4, 2)))
     ax_model.set_ylim(plot_depth_lim[1], plot_depth_lim[0])  # depth grows downward

@@ -221,15 +221,29 @@ def test_solve_chunk_direct_matches_jax(tiny, schedule, passes, subtract):
     """The 2D direct chunk solve (assembly, factor, load with its lift or the
     plain point load, PCG, axis readout) on the 65x17 problem: JAX's iteration
     count within 1 (the exact factors take 2-4 iterations; the 6-pass fixed
-    point takes ~35, where float32 rounding moves the stopping point, so it is
-    held to a tenth of the count), the axis potentials within 1e-5 of their
-    magnitude."""
+    point takes ~30, held to a tenth of the count), the axis potentials within
+    1e-5 of their magnitude. The fixed point's count is compared in float64
+    (26 in both packages) within a tenth; in float32 it follows the rounding
+    of the operator and of the CG's sums (JAX takes 35 on its own operator,
+    the port 29 on its operator, whose diagonal closes the zero row sums,
+    ``ops/assembly2d.py``), so there it is held to at most JAX's count plus a
+    tenth."""
     kw = dict(tol=1e-7, maxiter=200, subtract=subtract, schedule=schedule, factor_passes=passes)
     with jax.default_device(CPU):
         ua_j, rel_j, it_j = jrt._solve_chunk_direct(*[jnp.asarray(a) for a in tiny], **kw)
     ua_t, rel_t, it_t = trt._solve_chunk_direct(
         *chunk_to_torch(tiny, "cpu", torch.float32), use_kernel=True, **kw)
-    assert 0 < it_t < 200 and abs(it_t - int(it_j)) <= max(1, int(it_j) // 10)
+    slack = max(1, int(it_j) // 10)
+    assert 0 < it_t < 200 and it_t <= int(it_j) + slack
+    if schedule == "fp":
+        arrays = [a.astype(np.float64) if a.dtype == np.float32 else a for a in tiny]
+        with jax.default_device(CPU):
+            _, _, it_j = jrt._solve_chunk_direct(*[jnp.asarray(a) for a in arrays], **kw)
+        _, _, it_t64 = trt._solve_chunk_direct(
+            *chunk_to_torch(arrays, "cpu", torch.float64), use_kernel=True, **kw)
+        assert abs(it_t64 - int(it_j)) <= max(1, int(it_j) // 10)
+    else:
+        assert abs(it_t - int(it_j)) <= slack
     assert (it_t <= 4) == (schedule != "fp")
     assert float(rel_t.max()) <= 1e-6 and float(rel_t[1, 2]) == 0.0
     ref = np.asarray(ua_j)

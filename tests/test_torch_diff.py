@@ -255,7 +255,8 @@ def test_device_default_needs_a_card(monkeypatch):
 
 def full_from_half_2d(C_half):
     """The full (B, NZ, NR, 3, 3) stencil of half storage, differentiably: each
-    offset plane fills the direct entry at n and the mirrored one at n+d."""
+    offset plane fills the direct entry at n and the mirrored one at n+d; the
+    diagonal is the row sum (plane 0) less the row's couplings."""
     B, _, nz, nr = C_half.shape
     C = C_half.new_zeros((B, nz, nr, 3, 3))
     C[..., 1, 1] = C_half[:, 0]
@@ -263,6 +264,8 @@ def full_from_half_2d(C_half):
         (zd, zs), (rd, rs) = _window(dz, nz), _window(dr, nr)
         C[:, zd, rd, 1 + dz, 1 + dr] = C_half[:, k + 1, zd, rd]
         C[:, zs, rs, 1 - dz, 1 - dr] = C_half[:, k + 1, zd, rd]
+        C[:, zd, rd, 1, 1] = C[:, zd, rd, 1, 1] - C_half[:, k + 1, zd, rd]
+        C[:, zs, rs, 1, 1] = C[:, zs, rs, 1, 1] - C_half[:, k + 1, zd, rd]
     return C
 
 

@@ -1,10 +1,11 @@
 # -*- coding: utf-8 -*-
 """Kernel K1 (symmetric half-storage 9-point stencil apply).
 
-On the CPU: the plain torch version against the JAX Pallas kernel (interpreter
-mode, as tests/test_pallas.py runs it) and against JAX's XLA 9-point apply, at
-rtol 2e-5 / atol 1e-5 (the Pallas test's tolerance: summation orders differ);
-the half storage is exact; and the wrapper never falls back from the kernel.
+On the CPU: the plain torch version (difference form) against the JAX Pallas
+kernel (diagonal form; interpreter mode, as tests/test_pallas.py runs it) and
+against JAX's XLA 9-point apply, at rtol 2e-5 / atol 1e-5 (the Pallas test's
+tolerance: summation orders differ); the half storage is exact; and the
+wrapper never falls back from the kernel.
 The kernel itself runs on the card only: tests/test_torch_cuda.py.
 """
 
@@ -63,12 +64,22 @@ def test_plain_matches_jax_pallas_and_xla(shape):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_half_planes_bit_equal(shape):
+    """The four offset planes are the JAX package's bit for bit; the port holds
+    the row sum where JAX holds the diagonal: the diagonal and every coupling
+    that lies inside the grid, summed in float64 and rounded once."""
     C, _ = _inputs(shape)
     with jax.default_device(CPU):
         ref = np.asarray(jpallas.half_planes_2d(jnp.asarray(C)))
     out = stencil2d.half_planes_2d(torch.as_tensor(C))
     assert out.is_contiguous()
-    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy()[:, 1:], ref[:, 1:])
+    nz, nr = shape[2:]
+    row_sum = ref[:, 0].astype(np.float64)
+    for k, (dz, dr) in enumerate(stencil2d.POS_OFFSETS_2D):
+        (zd, zs), (rd, rs) = stencil2d._window(dz, nz), stencil2d._window(dr, nr)
+        row_sum[:, zd, rd] += ref[:, k + 1, zd, rd]
+        row_sum[:, zs, rs] += ref[:, k + 1, zd, rd]
+    np.testing.assert_array_equal(out.numpy()[:, 0], row_sum.astype(np.float32))
 
 
 def test_wrapper_on_cpu_uses_plain_and_counts_nothing():
