@@ -93,11 +93,16 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     on the host's cores), each beside the JAX package's README figure;
 28. float64 potentials on the card against the finite-volume oracle at one
     BM1-like source depth, the 1x / 2x / 4x refinement ladder's observed
-    order, and the BM3 dip ladder 0-60 NaN-free within its residual bound.
+    order, and the BM3 dip ladder 0-60 NaN-free within its residual bound;
+29. the benchmark entry point, ``python -m remo3d_tpu_torch.bench --repeats
+    2``, in a child: its one line parses, is ok with no NaN, K1 launched in
+    its 2D workload and K2 in its 3D one, ``0 < bw_util_* <= 1``, and each
+    median wall lies within 2x of the phase 4 / phase 8 wall of this run.
 The launch counts of K1 and K2 are read around every script of 25-28.
 
 Every phase group (3-6, 7-11, 12-15, 16-19, 20-24, 25-28) runs in a child process
-(``python3 chip_smoke.py --phase <group>``) under ``timeout -k 10 <limit>``
+(``python3 chip_smoke.py --phase <group>``), and phase 29 as the bench's own
+command, under ``timeout -k 10 <limit>``
 (:data:`GROUP_LIMITS`, about three times the group's time on an H100), so a
 hung launch fails the run with a printed line instead of blocking it; the
 parent builds the kernels once before the first group. Each child's last line
@@ -258,12 +263,17 @@ JAX_BM3 = {15: "0.43% over dips 15-45", 30: "0.43% over dips 15-45",
 
 # Time limit (s) of each phase group's child: about three times the group's
 # time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~150-230
-# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180 s) plus the child's start.
+# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180-215 s, 29 ~80-100 s) plus the
+# child's start.
 GROUP_LIMITS = {
     "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420, "25-28": 540,
-    "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600, "probe": 600,
+    "29": 360, "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600,
+    "probe": 600,
 }
-GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28"]
+GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29"]
+# Phase 29: the bench's timed calls per workload, its limit per workload's
+# child (s), and how far its median walls may lie from phase 4's and 8's.
+BENCH_REPEATS, BENCH_LIMIT, BENCH_WALL_RATIO = 2, 150, 2.0
 MODES = {"--screen": "12-15", "--diff": "16-19", "--profile3d": "profile3d",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
          "--tune": "tune", "--probe": "probe"}
@@ -696,7 +706,7 @@ def log_3d(torch, depths, **kwargs):
 
 
 def run_2d(torch, card):
-    """Phases 4-6; returns the K1 launch count of the main-path run."""
+    """Phases 4-6; returns the K1 launch count and the wall of the main-path run."""
     from remo3d_tpu_torch import Model
     from remo3d_tpu_torch.plotting import _write_tsv_groups
 
@@ -799,11 +809,11 @@ def run_2d(torch, card):
     log(f"2D uniform medium {rho} ohm-m: worst |Ra/Rt - 1| = {worst_u:.2e}")
     if not worst_u <= 5e-3:
         raise AssertionError(f"uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > 5e-3")
-    return launches
+    return launches, elapsed
 
 
 def run_3d(torch, card):
-    """Phases 8-11; returns the K2 launch count of the main-path run."""
+    """Phases 8-11; returns the K2 launch count and the wall of the main-path run."""
     from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
 
     cuda32 = dict(device="cuda", dtype="float32")
@@ -890,7 +900,7 @@ def run_3d(torch, card):
         f"(limit {UNIFORM3D_REL:g})")
     if not worst_u <= UNIFORM3D_REL:
         raise AssertionError(f"3D uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > {UNIFORM3D_REL}")
-    return launches
+    return launches, elapsed
 
 
 def measured_log(torch, make_log):
@@ -2086,6 +2096,46 @@ def run_scripts(torch, card):
     return out
 
 
+def bench_phase(walls: dict) -> dict:
+    """Phase 29: ``python -m remo3d_tpu_torch.bench`` in a child under
+    ``GROUP_LIMITS["29"]``, its line checked and echoed; ``walls`` holds the
+    walls of phase 4 ("2d") and phase 8 ("3d") of this run, where they ran.
+    Returns the launch counts of the bench's layers runs for the kernels
+    line; raises on any fault, after checking everything."""
+    run = run_child([sys.executable, "-m", "remo3d_tpu_torch.bench", "--repeats",
+                     str(BENCH_REPEATS), "--limit", str(BENCH_LIMIT)], GROUP_LIMITS["29"],
+                    echo=False)
+    line = run["result"]
+    log(f"bench: exit {run['returncode']} after {run['seconds']:.1f} s; its line:")
+    log(json.dumps(line) if line is not None else "\n".join(run["tail"][-8:]))
+    if not isinstance(line, dict) or run["status"] == "cut":
+        raise AssertionError(f"bench: {run['status']}, no line")
+    faults = [] if line.get("ok") is True else [f"not ok: {line.get('failures')}"]
+    launches = {"stencil2d_half": {}, "stencil3d_half": {}}
+    for dim, kernel in (("2d", "stencil2d_half"), ("3d", "stencil3d_half")):
+        layers = (line.get("layers") or {}).get(dim) or {}
+        n = (layers.get("launches") or {}).get(kernel, 0)
+        launches[kernel][f"launches_bench_{dim}"] = n
+        bw, wall = line.get(f"bw_util_{dim}"), line.get(f"elapsed_{dim}_s")
+        if line.get(f"n_nan_{dim}") != 0:
+            faults.append(f"{dim}: n_nan {line.get(f'n_nan_{dim}')}")
+        if not n > 0:
+            faults.append(f"{dim}: {kernel} launched {n} times")
+        if not (bw is not None and 0 < bw <= 1):
+            faults.append(f"{dim}: bw_util {bw}")
+        if len(line.get(f"runs_{dim}_s") or []) != BENCH_REPEATS:
+            faults.append(f"{dim}: runs {line.get(f'runs_{dim}_s')}")
+        if dim in walls:
+            ratio = wall / walls[dim] if wall else float("nan")
+            log(f"bench {dim}: median {wall} s against phase {4 if dim == '2d' else 8}'s "
+                f"{walls[dim]:.3f} s: {ratio:.3f}x")
+            if not 1 / BENCH_WALL_RATIO <= ratio <= BENCH_WALL_RATIO:
+                faults.append(f"{dim}: median wall {wall} s against {walls[dim]:.3f} s")
+    if faults:
+        raise AssertionError("phase 29: " + "; ".join(faults))
+    return launches
+
+
 def check_checkout(torch):
     """Every process of this script: a card is visible, the package is this
     checkout's, JAX was not imported."""
@@ -2120,13 +2170,14 @@ def run_group(group: str) -> dict:
     if group == "3-6":
         info = report_kernel_info(torch)  # 2: what the built kernels use
         k1 = check_k1(torch)  # 3
-        k1["launches"] = run_2d(torch, card)  # 4-6
-        return {"k1": k1, "info": {"stencil2d_half": info["K1 float32 S=5 NR=161"],
-                                   "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"]}}
+        k1["launches"], wall = run_2d(torch, card)  # 4-6
+        return {"k1": k1, "wall_s": wall,
+                "info": {"stencil2d_half": info["K1 float32 S=5 NR=161"],
+                         "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"]}}
     if group == "7-11":
         k2 = check_k2(torch)  # 7
-        k2["launches"] = run_3d(torch, card)  # 8-11
-        return {"k2": k2}
+        k2["launches"], wall = run_3d(torch, card)  # 8-11
+        return {"k2": k2, "wall_s": wall}
     if group == "12-15":
         return {"screen": run_screen(torch, card)}
     if group == "16-19":
@@ -2190,6 +2241,16 @@ def main() -> int:
     t_start = time.perf_counter()
     results = {}
     for g in groups:
+        if g == "29":
+            walls = {dim: results[h]["wall_s"] for dim, h in (("2d", "3-6"), ("3d", "7-11"))
+                     if h in results}
+            try:
+                results[g] = bench_phase(walls)
+            except AssertionError as e:
+                log(f"chip_smoke: {e}")
+                return 1
+            log(f"phase group {g} done, {time.perf_counter() - t_start:.1f} s in all")
+            continue
         run = run_child([sys.executable, os.path.abspath(__file__), "--phase", g], GROUP_LIMITS[g])
         if run["status"] == "cut":
             log(f"chip_smoke: phase group {g} cut after {run['seconds']:.1f} s (limit "
@@ -2225,6 +2286,8 @@ def main() -> int:
     for g in ("20-24", "25-28"):
         k1.update(results[g]["launches"]["stencil2d_half"])
         k2.update(results[g]["launches"]["stencil3d_half"])
+    k1.update(results["29"]["stencil2d_half"])
+    k2.update(results["29"]["stencil3d_half"])
 
     log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
     log(card)
