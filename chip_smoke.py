@@ -17,7 +17,11 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
    product;
 4. the 2D main path at full width: ``Model.compute_synthetic_logs`` on
    ``cuda``, 6 tools x 101 depths on the default 761x161 grid, with the kernels'
-   launch counts read around the run; then the same log with the kernels off;
+   launch counts read around the run and the CG loop's graph captures and
+   replays (``ops/cg.py``); the same log with the CG loop op by op
+   (:func:`eager`), whose readouts, CG iterations and launches must equal the
+   graphed run's (:func:`graph_vs_eager`); then the same log with the kernels
+   off;
 5. 2D cross-check: 3 depths on the card and on the CPU (plain versions) agree;
 6. 2D physics: in a uniform medium every tool reads the true resistivity;
 7. kernel K2 (``stencil3d_half``) against its plain version, float32 and
@@ -26,7 +30,8 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
    grid, an edge case, a ragged shape and one lower than a tile, then timed
    like K1;
 8. the 3D main path at full width: the 100-point Benchmark-model-3 log at dip
-   30 on the default 193x17x49 grid, with the launch counts read around it;
+   30 on the default 193x17x49 grid, with the launch counts read around it,
+   then again with the CG loop op by op, held to it as in phase 4;
 9. the first 20 depths of that log again with the kernels off;
 10. 3D cross-check in float64: 3 depths on the card and on the CPU agree;
 11. 3D physics: a uniform medium at dip 30 reads the true resistivity;
@@ -35,7 +40,9 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     same three again in reverse order, and "fp" on the first 10 depths beside a
     multigrid run of those; every direct log agrees with a float64 direct log
     and with the multigrid one, has no failed solve and launched K1; wall,
-    solve and factor seconds, CG iterations, launches and peak memory per run;
+    solve and factor seconds, CG iterations, launches, the CG graphs and peak
+    memory per run; the second run of each preconditioner runs its CG loop op
+    by op and is held to the first as in phase 4;
 13. the same screen in 3D: the log of phase 8 through "adi" and
     ``precond3d="direct"`` ("bcr", "scan"; "fp" on the first 10 depths), K2's
     launches;
@@ -55,10 +62,12 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     761x161 grid in chunks of 8, against the card's direct-preconditioned
     ``Model`` log; reverse mode against forward mode (the Jacobian), central
     finite differences on the two most sensitive parameters; K1's launches
-    counted around the forward, the backward and the Jacobian;
+    counted around the forward, the backward and the Jacobian; the first
+    forward and Jacobian and one more taped forward and backward with the CG
+    loops op by op, held to the graphed calls as in phase 4;
 18. the same in 3D: a dipping invaded bed (dip 30, 4 parameters), 13 depths on
     the default 193x17x49 grid, against the card's ``precond3d="direct"`` log;
-    K2's launches;
+    K2's launches; graphed against op by op;
 19. the card against the CPU (forward and Jacobian of the 2D log on a 193x41
     grid), then a Levenberg-Marquardt inversion of the 3D log on a 49x7x21
     grid, which must recover the 4 resistivities;
@@ -121,6 +130,13 @@ log per dimension and exact schedule ("bcr", "scan"): wall, busy share, the
 factorization's seconds and the ten device activities that take most time.
 ``python3 chip_smoke.py --tune-direct`` instead times ``torch.linalg.inv`` at
 the direct solvers' block shapes and the 3D factorizations per ``z_block``.
+``python3 chip_smoke.py --graphs`` instead runs phase 4's and phase 8's logs
+and Example_01's, each with the CG loop op by op and graphed in turns (op by
+op, graph, graph, op by op; the logs of several chunks also graphed with
+``pipeline_window`` 1 twice in the middle): wall, split, CG iterations, graph
+capture seconds and replays, launches, peak allocated and reserved memory,
+and the device busy share and top five activities of a profiled run of each
+turn (:func:`graph_turns`).
 ``python3 chip_smoke.py --tune`` instead times both kernels at their main
 shapes for every tile height, to choose the kernels' automatic one.
 ``python3 chip_smoke.py --probe`` instead times K2 beside its probe builds
@@ -268,7 +284,7 @@ JAX_BM3 = {15: "0.43% over dips 15-45", 30: "0.43% over dips 15-45",
 GROUP_LIMITS = {
     "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420, "25-28": 540,
     "29": 360, "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600,
-    "probe": 600,
+    "probe": 600, "graphs": 600,
 }
 GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29"]
 # Phase 29: the bench's timed calls per workload, its limit per workload's
@@ -276,7 +292,7 @@ GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29"]
 BENCH_REPEATS, BENCH_LIMIT, BENCH_WALL_RATIO = 2, 150, 2.0
 MODES = {"--screen": "12-15", "--diff": "16-19", "--profile3d": "profile3d",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
-         "--tune": "tune", "--probe": "probe"}
+         "--tune": "tune", "--probe": "probe", "--graphs": "graphs"}
 
 
 def log(msg: str) -> None:
@@ -696,6 +712,67 @@ def read_counts():
     return {"stencil2d_half": stencil2d.LAUNCHES, "stencil3d_half": stencil3d.LAUNCHES}
 
 
+# Graphed CG loops (ops/cg.py: every iteration after the first is a replay of
+# one captured CUDA graph) against the same loops op by op: the same
+# operations on the same inputs in the same order, so the readouts should be
+# bit-equal. A difference is printed with its size and held to this gate
+# (relative); CG iterations and kernel launches must be equal.
+GRAPH_REL = 1e-6
+
+
+def eager(fn):
+    """``fn()`` with ops/cg.py's CUDA graphs off: every CG iteration op by op."""
+    from remo3d_tpu_torch.ops import cg
+
+    cg.GRAPHS = False
+    try:
+        return fn()
+    finally:
+        cg.GRAPHS = True
+
+
+def graph_figures(report) -> str:
+    """The CG graphs of a log: capture seconds (summed) and replays per chunk."""
+    chunks = report["chunks"]
+    return (f"CG graph capture {sum(c['capture_seconds'] for c in chunks):.4f} s, replays "
+            f"{[c['replays'] for c in chunks]}")
+
+
+def graph_vs_eager(label, graphed, op_by_op) -> list[str]:
+    """Prints the graphed run against the op-by-op one; each a dict with
+    "vals" (readouts), "iterations" and "launches". Returns the faults."""
+    g, e = np.asarray(graphed["vals"]), np.asarray(op_by_op["vals"])
+    differ = ~((g == e) | (np.isnan(g) & np.isnan(e)))
+    rel = float(np.nanmax(np.abs(g / e - 1), initial=0.0))
+    same = "bit-equal" if not differ.any() else (
+        f"{int(differ.sum())} of {g.size} differ, max rel {rel:.3e} (gate {GRAPH_REL:g})")
+    log(f"graph vs eager, {label}: readouts {same}; CG iterations {graphed['iterations']} / "
+        f"{op_by_op['iterations']}; launches {graphed['launches']} / {op_by_op['launches']}")
+    faults = []
+    if g.shape != e.shape or (np.isnan(g) != np.isnan(e)).any() or not rel <= GRAPH_REL:
+        faults.append(f"{label}: graphed vs eager readouts {same}")
+    if graphed["iterations"] != op_by_op["iterations"]:
+        faults.append(f"{label}: CG iterations {graphed['iterations']} graphed, "
+                      f"{op_by_op['iterations']} eager")
+    if graphed["launches"] != op_by_op["launches"]:
+        faults.append(f"{label}: launches {graphed['launches']} graphed, "
+                      f"{op_by_op['launches']} eager")
+    return faults
+
+
+def eager_twin(torch, make_log, readouts):
+    """The log ``make_log()`` again with the graphs off, counted like the main
+    path: {"vals", "iterations", "launches", "wall"}."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = eager(make_log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"vals": readouts(model), "launches": read_counts(), "wall": wall,
+            "iterations": [c["iterations"] for c in model.last_report["chunks"]]}
+
+
 def log_3d(torch, depths, **kwargs):
     from remo3d_tpu_torch import Model
 
@@ -714,10 +791,17 @@ def run_2d(torch, card):
         borehole_geometry_type="radius", domain_radius=50, batch_size=5,
         dtype="float32", device="cuda", verbose=False,
     )
+    def make_log():
+        return Model.compute_synthetic_logs(EXAMPLE01_TOOLS, DEPTHS, FORMATION, BOREHOLE,
+                                            **kwargs)
+
+    def readouts(model):
+        return np.stack([model.logs[t][:, 1] for t in EXAMPLE01_TOOLS], axis=1)
+
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = Model.compute_synthetic_logs(EXAMPLE01_TOOLS, DEPTHS, FORMATION, BOREHOLE, **kwargs)
+    model = make_log()
     elapsed = time.perf_counter() - t0
     counts = read_counts()
     launches = counts["stencil2d_half"]
@@ -735,7 +819,7 @@ def run_2d(torch, card):
         f"2D main path on {card}: {elapsed:.3f} s, {n_solves / elapsed:.2f} solves/s, "
         f"{vals.size / elapsed:.2f} readouts/s; phases "
         + ", ".join(f"{k} {v:.3f} s" for k, v in report["phases"].items())
-        + f"; launches {counts}"
+        + f"; launches {counts}; {graph_figures(report)}"
     )
     if not np.isfinite(vals).all():
         raise AssertionError(f"{int((~np.isfinite(vals)).sum())} non-finite readouts")
@@ -745,6 +829,14 @@ def run_2d(torch, card):
         raise AssertionError(f"CG iterations {iters} (maxiter 1000)")
     if launches < 2 * sum(iters):
         raise AssertionError(f"K1 launched {launches} times for CG iterations {iters}")
+    if not all(c["replays"] == c["iterations"] - 1 for c in chunks):
+        raise AssertionError(f"2D: CG graph replays {graph_figures(report)} for iterations {iters}")
+    twin = eager_twin(torch, make_log, readouts)
+    log(f"2D main path on {card} with the CG loop op by op: {twin['wall']:.3f} s")
+    faults = graph_vs_eager("2D log (phase 4)", {"vals": vals, "iterations": iters,
+                                                 "launches": counts}, twin)
+    if faults:
+        raise AssertionError("; ".join(faults))
 
     with tempfile.TemporaryDirectory() as tmp:
         _write_tsv_groups(model.logs, "auto", tmp)
@@ -838,7 +930,7 @@ def run_3d(torch, card):
         f"3D main path on {card}: {elapsed:.3f} s, {len(DEPTHS_3D) / elapsed:.3f} points/s, "
         f"{n_solves / elapsed:.3f} solves/s; phases "
         + ", ".join(f"{k} {v:.3f} s" for k, v in report["phases"].items())
-        + f"; launches {counts}"
+        + f"; launches {counts}; {graph_figures(report)}"
     )
     log(f"3D log Ra (ohm-m): min {vals.min():.4f}, max {vals.max():.4f}; meshed by "
         f"{report['mesher']}")
@@ -852,6 +944,15 @@ def run_3d(torch, card):
         raise AssertionError(f"3D CG iterations {iters} (maxiter 1000)")
     if launches < 5 * sum(iters):
         raise AssertionError(f"K2 launched {launches} times for CG iterations {iters}")
+    if not all(c["replays"] == c["iterations"] - 1 for c in chunks):
+        raise AssertionError(f"3D: CG graph replays {graph_figures(report)} for iterations {iters}")
+    twin = eager_twin(torch, lambda: log_3d(torch, DEPTHS_3D, **cuda32),
+                      lambda m: m.logs[TOOLS_3D[0]][:, 1])
+    log(f"3D main path on {card} with the CG loop op by op: {twin['wall']:.3f} s")
+    faults = graph_vs_eager("3D log (phase 8)", {"vals": vals, "iterations": iters,
+                                                 "launches": counts}, twin)
+    if faults:
+        raise AssertionError("; ".join(faults))
 
     # ---- 9. kernels off, first 20 depths --------------------------------------------
     n_sub = 20
@@ -903,6 +1004,12 @@ def run_3d(torch, card):
     return launches, elapsed
 
 
+def mesh_seconds(report) -> float:
+    """A log's host meshing: the executor's "mesh" phase and the pipeline's
+    "mesh_ahead" (which overlaps the solves)."""
+    return report["phases"].get("mesh", 0.0) + report["phases"].get("mesh_ahead", 0.0)
+
+
 def measured_log(torch, make_log):
     """One log through ``Model.compute_synthetic_logs``: the kernels' counts
     set to 0 just before it and read just after, the wall around it, the peak
@@ -922,20 +1029,25 @@ def measured_log(torch, make_log):
         "wall_s": wall,
         "solve_s": report["phases"]["solve"],
         "factor_s": report["factor_seconds"],
-        "mesh_s": report["phases"]["mesh"],
+        "mesh_s": mesh_seconds(report),
         "chunk": int(report["chunk"]),
         "cg_iterations": [int(c["iterations"]) for c in report["chunks"]],
         "solves": int(sum(c["solves"] for c in report["chunks"])),
         "failed_solves": int(report["n_failed_solves"]),
         "launches": counts,
+        "graph": graph_figures(report),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
     }
 
 
 def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit):
     """Phases 12 and 13: one workload through the iterative preconditioner and
     the direct one under each schedule, in turns (iterative, bcr, scan, scan,
-    bcr, iterative), then "fp" and the iterative one on the first depths.
+    bcr, iterative), then "fp" and the iterative one on the first depths. The
+    second run of each preconditioner runs its CG loop op by op
+    (:func:`eager`) and is held to the first, graphed one
+    (:func:`graph_vs_eager`).
 
     ``make_log(depths, overrides, **kwargs)`` runs the log; ``readouts(model)``
     gives its values as an array. The reference is a float64 direct log at tol
@@ -954,7 +1066,7 @@ def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit
         (iterative, {key: iterative}), ("direct-bcr", direct("bcr")),
         ("direct-scan", direct("scan")), ("direct-scan", direct("scan")),
         ("direct-bcr", direct("bcr")), (iterative, {key: iterative}),
-    ]
+    ]  # the second run of each: the CG loop op by op
     sub = depths[:N_FP_DEPTHS]
     turns_fp = [
         (iterative, {key: iterative}),
@@ -969,9 +1081,17 @@ def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit
         if not np.isfinite(truth).all():
             raise AssertionError(f"{dim}: non-finite readouts in the float64 reference log")
         ref = None
+        graphed = {}  # name -> the first run's readouts, iterations and launches
         for name, overrides in group:
-            model, row = measured_log(torch, lambda: make_log(d, overrides))
+            run = lambda: make_log(d, overrides)  # noqa: E731
+            model, row = measured_log(torch, run if name not in graphed else lambda: eager(run))
             vals = readouts(model)
+            row["cg_loop"] = "graph" if name not in graphed else "op by op"
+            this = {"vals": vals, "iterations": row["cg_iterations"], "launches": row["launches"]}
+            if name in graphed:
+                faults += graph_vs_eager(f"{dim} {name}", graphed[name], this)
+            else:
+                graphed[name] = this
             n_nan = int((~np.isfinite(vals)).sum())
             if ref is None:
                 ref = vals
@@ -984,13 +1104,15 @@ def screen(torch, card, dim, make_log, readouts, depths, kernel, iterative, unit
                 row["passes"] = FP_PASSES[dim]
             rows.append(row)
             log(
-                f"{dim} screen on {card}: {name:<12s} {len(d):3d} depths: wall "
-                f"{row['wall_s']:.3f} s "
+                f"{dim} screen on {card}: {name:<12s} {len(d):3d} depths, CG loop "
+                f"{row['cg_loop']}: wall {row['wall_s']:.3f} s "
                 f"(solve {row['solve_s']:.3f} s, of which factor {row['factor_s']:.3f} s; mesh "
                 f"{row['mesh_s']:.3f} s), {row['rate_per_s']:.3f} {unit}/s, {row['solves']} solves "
                 f"in "
                 f"chunks of B={row['chunk']}, CG iterations {row['cg_iterations']}, launches "
-                f"{row['launches']}, peak memory {row['peak_memory_bytes'] / 1e9:.3f} GB, readouts "
+                f"{row['launches']}, {row['graph']}, peak memory "
+                f"{row['peak_memory_bytes'] / 1e9:.3f} GB (reserved "
+                f"{row['peak_reserved_bytes'] / 1e9:.3f} GB), readouts "
                 f"vs {iterative} {rel:.3e} (limit {limit:g}), vs float64 {rel64:.3e} (limit for "
                 f"direct {limit64:g})"
             )
@@ -1269,15 +1391,27 @@ def diff_seconds(dlog) -> str:
 def diff_run(torch, card, dim, dlog, ref, kernel, fd_params):
     """Phases 17 and 18 on one DifferentiableLog: forward against the Model log
     ``ref``, reverse against forward mode, finite differences on
-    ``fd_params`` (None = the two most sensitive). Returns the launches of
-    ``kernel`` in the forward, the backward and the Jacobian."""
+    ``fd_params`` (None = the two most sensitive). The first forward and
+    Jacobian calls (warm-ups) and one more taped forward and backward run
+    their CG loops op by op, held to the graphed calls (:func:`graph_vs_eager`).
+    Returns the launches of ``kernel`` in the forward, the backward and the
+    Jacobian."""
     p0 = np.asarray(dlog.params0, dtype=np.float64)
-    wall_f0 = diff_measure(torch, lambda: dlog.forward(p0))[1]  # the first call warms up
+
+    def iterations(key):
+        return [c[key] for c in dlog.last_report["chunks"]]
+
+    out0, wall_f0, n_f0, _ = diff_measure(torch, lambda: eager(lambda: dlog.forward(p0)))
+    op_by_op = {"vals": out0.cpu().numpy(), "iterations": iterations("iterations"),
+                "launches": n_f0}
     out, wall_f, n_f, mem_f = diff_measure(torch, lambda: dlog.forward(p0))
-    it_f = [c["iterations"] for c in dlog.last_report["chunks"]]
+    it_f = iterations("iterations")
     vals = out.cpu().numpy()
+    faults = graph_vs_eager(f"diff {dim} forward", {"vals": vals, "iterations": it_f,
+                                                     "launches": n_f}, op_by_op)
     rel = float(np.nanmax(np.abs(vals / ref - 1)))
-    log(f"diff {dim} on {card}: forward {wall_f:.3f} s (first call {wall_f0:.3f} s), CG "
+    log(f"diff {dim} on {card}: forward {wall_f:.3f} s (first call, CG op by op, "
+        f"{wall_f0:.3f} s), CG "
         f"iterations {it_f}, launches {n_f}, peak memory {mem_f / 1e9:.3f} GB, "
         f"{diff_seconds(dlog)}; against the direct Model log {rel:.3e} (limit "
         f"{DIFF_FORWARD_REL[dim]:g})")
@@ -1298,9 +1432,26 @@ def diff_run(torch, card, dim, dlog, ref, kernel, fd_params):
     it_b = [c.get("adjoint_iterations") for c in dlog.last_report["chunks"]]
     del loss
 
-    wall_j0 = diff_measure(torch, lambda: dlog.jacobian(p0))[1]  # the first call warms up
+    def taped_backward():
+        return torch.autograd.grad(taped(), p)[0]
+
+    g_eager, _, n_e, _ = diff_measure(torch, lambda: eager(taped_backward))
+    n_rb = {k: n_r[k] + n_b[k] for k in n_r}
+    faults += graph_vs_eager(
+        f"diff {dim} taped forward + backward",
+        {"vals": g_rev.cpu().numpy(), "iterations": it_b, "launches": n_rb},
+        {"vals": g_eager.cpu().numpy(), "launches": n_e,
+         "iterations": [c.get("adjoint_iterations") for c in dlog.last_report["chunks"]]})
+
+    J0, wall_j0, n_j0, _ = diff_measure(torch, lambda: eager(lambda: dlog.jacobian(p0)))
+    op_by_op = {"vals": J0.cpu().numpy(), "iterations": iterations("tangent_iterations"),
+                "launches": n_j0}
     J, wall_j, n_j, mem_j = diff_measure(torch, lambda: dlog.jacobian(p0))
-    it_j = [c["tangent_iterations"] for c in dlog.last_report["chunks"]]
+    it_j = iterations("tangent_iterations")
+    faults += graph_vs_eager(f"diff {dim} Jacobian", {"vals": J.cpu().numpy(), "iterations": it_j,
+                                                      "launches": n_j}, op_by_op)
+    if faults:
+        raise AssertionError("; ".join(faults))
     seconds_j = diff_seconds(dlog)
     J = J.cpu().numpy()
     g_fwd = np.einsum("mtp,mt->p", J, w.cpu().numpy())
@@ -1309,7 +1460,8 @@ def diff_run(torch, card, dim, dlog, ref, kernel, fd_params):
     log(f"diff {dim} on {card}: taped forward {wall_r:.3f} s (launches {n_r}, peak memory "
         f"{mem_r / 1e9:.3f} GB, {seconds_r}), backward {wall_b:.3f} s (adjoint "
         f"CG iterations {it_b}, launches {n_b}, peak memory {mem_b / 1e9:.3f} GB); Jacobian "
-        f"{tuple(J.shape)} {wall_j:.3f} s (first call {wall_j0:.3f} s; tangent CG iterations "
+        f"{tuple(J.shape)} {wall_j:.3f} s (first call, CG op by op, {wall_j0:.3f} s; tangent "
+        f"CG iterations "
         f"{it_j}, launches {n_j}, peak memory {mem_j / 1e9:.3f} GB, {seconds_j}); reverse vs "
         f"forward mode {err / scale:.3e} of scale "
         f"(limit {DIFF_REV_FWD:g})")
@@ -1629,6 +1781,78 @@ def profile_3d(torch, card):
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
 
 
+def graph_turns(torch, card):
+    """``--graphs``: the CG loop graphed (ops/cg.py) against op by op, in turns
+    (op by op, graph, graph, op by op), on phase 4's 2D log and phase 8's 3D
+    log (the bench's two workloads) and Example_01's (251 depths, chunks of
+    96 and 68), each after a warm-up, all with the executor's default
+    pipeline window of 3. The two logs of several chunks also run graphed
+    with a window of 1 (no read-ahead) in the middle of their turns: op by
+    op, graph, graph with window 1 twice, graph, op by op. Per turn: one run
+    timed (wall, split,
+    CG iterations, graph capture seconds and replays, launches, peak
+    allocated and reserved memory), then one under torch.profiler recording
+    device activities only (the busy share of its wall and the five device
+    activities that take most time, as the bench reads them). Returns the
+    rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from remo3d_tpu_torch import Model
+    from remo3d_tpu_torch.bench import _busy_and_top
+    from remo3d_tpu_torch.examples.example_01 import DEPTHS as EX01_DEPTHS
+
+    def log_2d_of(depths, **kwargs):
+        return lambda **more: Model.compute_synthetic_logs(
+            EXAMPLE01_TOOLS, depths, FORMATION, BOREHOLE, borehole_geometry_type="radius",
+            device="cuda", verbose=False, **kwargs, **more)
+
+    logs = {
+        "2D phase 4": log_2d_of(DEPTHS, domain_radius=50, batch_size=5, dtype="float32"),
+        "3D phase 8": lambda **more: log_3d(torch, DEPTHS_3D, device="cuda", dtype="float32",
+                                            **more),
+        "Example_01": log_2d_of(EX01_DEPTHS),
+    }
+    def turn(make, mode, window):
+        def run():
+            return make(executor_overrides={"pipeline_window": window})
+        return (lambda: eager(run)) if mode == "op by op" else run
+
+    rows = []
+    for name, make in logs.items():
+        make()  # warm-up
+        turns = [("op by op", 3), ("graph", 3), ("graph", 3), ("op by op", 3)]
+        if name != "2D phase 4":  # one chunk: nothing to read ahead
+            turns[2:2] = [("graph", 1), ("graph", 1)]
+        for mode, window in turns:
+            run = turn(make, mode, window)
+            model, row = measured_log(torch, run)
+            report = model.last_report
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            busy, top, n_activities = _busy_and_top(prof, wall)
+            del prof
+            row = {"log": name, "cg_loop": mode, "pipeline_window": window, **row,
+                   "phases_s": report["phases"],
+                   "capture_s": [c["capture_seconds"] for c in report["chunks"]],
+                   "replays": [c["replays"] for c in report["chunks"]],
+                   "busy_share": busy, "profiled_wall_s": wall,
+                   "device_activities": n_activities, "top_kernels": top}
+            rows.append(row)
+            log(f"graphs on {card}: {name}, CG loop {mode}, window {window}: wall "
+                f"{row['wall_s']:.3f} s ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in report["phases"].items())
+                + f"), CG iterations {row['cg_iterations']}, {row['graph']}, launches "
+                f"{row['launches']}, peak memory {row['peak_memory_bytes'] / 1e9:.3f} GB "
+                f"(reserved {row['peak_reserved_bytes'] / 1e9:.3f} GB); profiled: wall "
+                f"{wall:.3f} s, busy share {busy:.3f}, {n_activities} device activities; top "
+                + ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms" for k in top))
+    return rows
+
+
 def log_2d(torch, depths, dtype="float32", **kwargs):
     """Phase 4's log (6 tools, this script's formation) on the card."""
     from remo3d_tpu_torch import Model
@@ -1706,7 +1930,7 @@ def native_mesher(torch, card):
         report = model.last_report
         runs[name] = model.logs[TOOLS_3D[0]][:, 1]
         log(f"3D main path on {card} meshed by {report['mesher']}: wall {wall:.3f} s, mesh "
-            f"{report['phases']['mesh']:.3f} s, solve {report['phases']['solve']:.3f} s, "
+            f"{mesh_seconds(report):.3f} s, solve {report['phases']['solve']:.3f} s, "
             f"{report['n_failed_solves']} failed solves")
         if report["mesher"] != name or report["n_failed_solves"]:
             raise AssertionError(f"3D log with use_native_mesher={on}: meshed by "
@@ -2187,6 +2411,8 @@ def run_group(group: str) -> dict:
         return {"launches": run_rest(torch, card)}
     if group == "25-28":
         return {"launches": run_scripts(torch, card)}
+    if group == "graphs":
+        return {"graphs": graph_turns(torch, card)}
     {"profile3d": profile_3d, "profile-direct": profile_direct, "tune-direct": tune_direct,
      "tune": tune, "probe": probe}[group](torch, card)
     return {}

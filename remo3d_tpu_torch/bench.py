@@ -506,6 +506,8 @@ def run_workload(name: str, args) -> dict:
         "device_activities": n_activities,
         "launches": counts,
         "cg_iterations": [c["iterations"] for c in layered["report"]["chunks"]],
+        "cg_graph": {"capture_s": [c["capture_seconds"] for c in layered["report"]["chunks"]],
+                     "replays": [c["replays"] for c in layered["report"]["chunks"]]},
         "chunks": {"batches": [c["batches"] for c in layered["report"]["chunks"]],
                    "B": layered["report"]["chunk"], "S": layered["report"]["n_solve_slots"]},
         "route": {"preconditioner": layered["report"]["preconditioner"],

@@ -15,6 +15,10 @@
 #pragma once
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
+
 #include <cuda_runtime.h>
 
 namespace slab {
@@ -138,12 +142,27 @@ inline bool choose_tile(int S, int tile_rows, int auto_max_tz, size_t auto_bytes
   return true;
 }
 
-// Above 48 KB a kernel must opt into its dynamic shared memory.
+// Above 48 KB a kernel must opt into its dynamic shared memory. The attribute
+// is set once per device, kernel and size (the largest asked so far), so a
+// launch whose size is already allowed makes no runtime call but the launch
+// itself: cudaFuncSetAttribute is no stream operation and is not recorded
+// into a CUDA graph, and a launch captured into one (ops/cg.py) repeats a
+// size its eager warm-up launch has set.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> allowed;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& done = allowed[{device, reinterpret_cast<const void*>(kernel)}];
+  if (smem <= done) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess) done = smem;
+  return err;
 }
 
 // out[0..5]: registers per thread, local (spill) bytes per thread, dynamic

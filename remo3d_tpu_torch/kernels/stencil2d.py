@@ -36,16 +36,23 @@ JAX package's apply).
 
 from __future__ import annotations
 
+import sys
+
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import COUNTED, build
 
 # Positive offsets (dz, dr), lexicographic; (di, dj) = (dz+1, dr+1) in C[..., 3, 3].
 POS_OFFSETS_2D = [(0, 1), (1, -1), (1, 0), (1, 1)]
 
 # Kernel launches since import (or since a caller reset it): one per launch.
+# A launch recorded into a CUDA graph being captured counts in CAPTURED
+# instead; it runs at every replay of the graph, and the replay adds it to
+# LAUNCHES (ops/cg.py, through the package's COUNTED).
 LAUNCHES = 0
+CAPTURED = 0
+COUNTED.append(sys.modules[__name__])
 
 _ENTRY = {torch.float32: "stencil2d_half_f32", torch.float64: "stencil2d_half_f64"}
 _INFO_ENTRY = {torch.float32: "stencil2d_half_info_f32", torch.float64: "stencil2d_half_info_f64"}
@@ -122,7 +129,7 @@ def kernel_info(
 
 def _apply(C_half: torch.Tensor, u: torch.Tensor, tile_rows: int) -> torch.Tensor:
     """The plain version for CPU tensors, else one kernel launch (no autograd)."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     if u.device.type == "cpu" and C_half.device.type == "cpu":
         return stencil_apply_half_2d_plain(C_half, u)
     _check(C_half, u)
@@ -132,13 +139,17 @@ def _apply(C_half: torch.Tensor, u: torch.Tensor, tile_rows: int) -> torch.Tenso
     y = torch.empty_like(u)
     B, S, nz, nr = u.shape
     with torch.cuda.device(u.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRY[u.dtype])(
             C_half.data_ptr(), u.data_ptr(), y.data_ptr(), B, S, nz, nr, tile_rows, stream
         )
     if err != 0:
         raise RuntimeError(f"stencil2d_half launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return y
 
 

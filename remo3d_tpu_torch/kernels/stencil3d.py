@@ -35,10 +35,12 @@ package's apply), taken on ``P g`` and ``P u`` with ``pole``.
 
 from __future__ import annotations
 
+import sys
+
 import torch
 
 from ..ops.stencil3d import entry_index, pole_project
-from . import build
+from . import COUNTED, build
 from .stencil2d import _window
 
 # Diagonal + 13 positive offsets (lexicographic order over (dz, dp, dr)).
@@ -52,7 +54,12 @@ POS_OFFSETS = [
 HALF_ENTRIES = [entry_index(0, 0, 0)] + [entry_index(*d) for d in POS_OFFSETS]
 
 # Kernel launches since import (or since a caller reset it): one per launch.
+# A launch recorded into a CUDA graph being captured counts in CAPTURED
+# instead; it runs at every replay of the graph, and the replay adds it to
+# LAUNCHES (ops/cg.py, through the package's COUNTED).
 LAUNCHES = 0
+CAPTURED = 0
+COUNTED.append(sys.modules[__name__])
 
 _ENTRY = {torch.float32: "stencil3d_half_f32", torch.float64: "stencil3d_half_f64"}
 _INFO_ENTRY = {torch.float32: "stencil3d_half_info_f32", torch.float64: "stencil3d_half_info_f64"}
@@ -115,7 +122,7 @@ def kernel_info(
 
 def _apply(C_half: torch.Tensor, u: torch.Tensor, pole: bool, tile_rows: int) -> torch.Tensor:
     """The plain version for CPU tensors, else one kernel launch (no autograd)."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURED
     if u.device.type == "cpu" and C_half.device.type == "cpu":
         return stencil3d_apply_half_plain(C_half, u, pole)
     _check(C_half, u)
@@ -125,6 +132,7 @@ def _apply(C_half: torch.Tensor, u: torch.Tensor, pole: bool, tile_rows: int) ->
     y = torch.empty_like(u)
     B, S, nz, np_, nr = u.shape
     with torch.cuda.device(u.device):
+        capturing = torch.cuda.is_current_stream_capturing()
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, _ENTRY[u.dtype])(
             C_half.data_ptr(), u.data_ptr(), y.data_ptr(), B, S, nz, np_, nr, int(pole),
@@ -132,7 +140,10 @@ def _apply(C_half: torch.Tensor, u: torch.Tensor, pole: bool, tile_rows: int) ->
         )
     if err != 0:
         raise RuntimeError(f"stencil3d_half launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if capturing:
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return y
 
 

@@ -20,6 +20,7 @@ import math
 import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,7 +57,7 @@ from ..ops.block_direct3d import (
     block_thomas_factor_3d,
     schur_fixedpoint_factor_3d,
 )
-from ..ops.cg import pcg
+from ..ops.cg import pcg, solve_stream
 from ..ops.lines3d import line_apply3, line_factor3
 from ..ops.multigrid import MGConfig, make_mg_preconditioner, make_stencil_apply
 from ..ops.stencil import stencil_apply
@@ -80,7 +81,7 @@ def _feasible_mg_levels(*dims: int, want: int = 4) -> int:
 def _solve_chunk(
     coords, sigma, free, src_i, src_fac, *, tol, maxiter, preconditioner,
     subtract=True, use_kernel=True, mg_degree=3, mg_power_iters=12,
-    mg_line_steps=None, mg_smoother="line_rz",
+    mg_line_steps=None, mg_smoother="line_rz", timings=None,
 ):
     """Assemble + batched PCG + axis-potential extraction for one chunk.
 
@@ -95,6 +96,7 @@ def _solve_chunk(
 
     ``use_kernel`` routes the CG matvec and the two finest multigrid levels
     through the half-storage stencil wrapper (the CUDA kernel on CUDA tensors).
+    ``timings``, if a dict, gets the CG loop's graph figures (:func:`_pcg2`).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
 
@@ -126,7 +128,7 @@ def _solve_chunk(
     matvec = make_stencil_apply(C, True) if use_kernel else None
     return _pcg2(
         C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
-        tol=tol, maxiter=maxiter, subtract=subtract,
+        tol=tol, maxiter=maxiter, subtract=subtract, timings=timings,
     )
 
 
@@ -151,12 +153,14 @@ def _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw):
 
 
 def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, maxiter,
-          subtract):
+          subtract, timings=None):
     """Load build + PCG + axis readout of a 2D chunk, whatever preconditions it.
 
     ``C_raw`` is the assembled stencil, ``C`` the Dirichlet-eliminated operator
     CG runs on, ``M_inv`` the preconditioner (None = point Jacobi) and
     ``matvec`` the operator apply (None = the plain 9-point apply of ``C``).
+    ``timings``, if a dict, gets the CG loop's graph figures under "graph"
+    (:func:`_graph_figures`).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
     if subtract:
@@ -169,8 +173,16 @@ def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, 
         for k in range(src_i.shape[-1]):
             b[..., 0].scatter_add_(-1, src_i[..., k : k + 1], src_fac[..., k : k + 1])
         u, info = pcg(C, b, M_inv=M_inv, tol=tol, maxiter=maxiter, matvec=matvec)
+    _graph_figures(timings, info)
     # Axis potentials are all the readout needs (electrodes sit on axis nodes).
     return u[..., 0], info["rel_residual"], info["iterations"]
+
+
+def _graph_figures(timings: dict | None, info: dict) -> None:
+    """``timings["graph"]`` = the CG loop's capture seconds and replays (both
+    0 when it ran op by op), when ``timings`` is a dict."""
+    if timings is not None:
+        timings["graph"] = {k: info[k] for k in ("capture_seconds", "replays")}
 
 
 @contextlib.contextmanager
@@ -228,7 +240,7 @@ def _solve_chunk_direct(
     Arguments and returns as :func:`_solve_chunk`. ``use_kernel`` routes the CG
     matvec through the half-storage stencil wrapper (the CUDA kernel on CUDA
     tensors). ``timings``, if a dict, gets the factorization's time under
-    "factor" (:func:`_timed`).
+    "factor" (:func:`_timed`) and the CG loop's graph figures (:func:`_pcg2`).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
     C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
@@ -238,7 +250,7 @@ def _solve_chunk_direct(
     matvec = make_stencil_apply(C, True) if use_kernel else None
     return _pcg2(
         C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
-        tol=tol, maxiter=maxiter, subtract=subtract,
+        tol=tol, maxiter=maxiter, subtract=subtract, timings=timings,
     )
 
 
@@ -298,7 +310,7 @@ def _factor3_direct(C, *, np_, nr, schedule="scan", passes=None):
 
 
 def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, precond="adi",
-          adi_damp=0.6):
+          adi_damp=0.6, timings=None):
     """Pole-tied preconditioned CG + axis readout.
 
     ``matvec`` is the pole-tied operator P A P (``_apply3(C, use_kernel,
@@ -311,6 +323,8 @@ def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, preco
     * ``"direct"``: ``direct_apply``, the banded-block factorization's apply
       from :func:`_factor3_direct`. It leaves the axis DOFs untied, so
       M^{-1} r = P apply(P r): a handful of CG iterations.
+
+    ``timings``, if a dict, gets the CG loop's graph figures (:func:`_pcg2`).
     """
     if precond == "direct":
         def M_inv(r):
@@ -332,6 +346,7 @@ def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, preco
                 return pole_project(z)
 
     u, info = pcg(None, b, M_inv=M_inv, tol=tol, maxiter=maxiter, n_grid_axes=3, matvec=matvec)
+    _graph_figures(timings, info)
     u_axis = u[..., :, :, 0].mean(dim=-1) + u_axis_offset
     return u_axis, info["rel_residual"], info["iterations"]
 
@@ -355,7 +370,8 @@ def _solve_chunk_3d(
     also ties the pole around the matvec and the sweep's applies. With
     ``precond="direct"`` the operator is factorized once per chunk under
     ``schedule`` / ``factor_passes`` (:func:`_factor3_direct`); ``timings``, if
-    a dict, gets the factorization's time under "factor" (:func:`_timed`).
+    a dict, gets the factorization's time under "factor" (:func:`_timed`) and
+    the CG loop's graph figures (:func:`_pcg2`).
     """
     nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
     C_raw, C = _assemble3(coords, sigma, free, metric=metric)
@@ -378,7 +394,7 @@ def _solve_chunk_3d(
                 C, np_=np_, nr=nr, schedule=schedule, passes=factor_passes)
     return _pcg3(
         C, b, u_axis_offset, _apply3(C, use_kernel, pole=True), direct_apply, tol=tol,
-        maxiter=maxiter, precond=precond, adi_damp=adi_damp,
+        maxiter=maxiter, precond=precond, adi_damp=adi_damp, timings=timings,
     )
 
 
@@ -516,6 +532,11 @@ class ExecutorConfig:
     # An .npz path: per-chunk results, written after every chunk; a rerun with
     # the same configuration and inputs skips the chunks already done.
     checkpoint: str | None = None
+    # Chunks in the pipeline: while one chunk solves, the next window - 1 are
+    # meshed and their host arrays stacked on a background thread (the
+    # "mesh_ahead" and "stack_ahead" phases). 1 = one chunk at a time, meshed
+    # when its turn comes.
+    pipeline_window: int = 3
 
 
 class Executor:
@@ -810,12 +831,11 @@ class Executor:
                     for k, (pos, fac) in enumerate(zip(s.source_positions, s.source_terms)):
                         src_i[bi, si, k] = g.axis_node_index(pos)
                         src_fac[bi, si, k] = fac
-            return self._tensor(src_i), self._tensor(src_fac)
+            return [src_i, src_fac]
 
-        def stage_light(start):
+        def host_light(batch_tasks, batch_grids, pad):
             """Device-meshing staging: ~KB of 1D profiles per batch, meshed on
-            the device."""
-            batch_tasks, batch_grids, pad = share(start)
+            the device by :func:`place`."""
             B = lanes
             nz = grid_shape[0]
             nfar = pad.far.size
@@ -846,10 +866,48 @@ class Executor:
                 wall[bi] = pad.wall_of_z
                 far[bi] = pad.far
                 rdet[bi] = pad.r_detach
-            profiles = [self._tensor(a) for a in (z, wall, far, rdet, bot, fzr, sfz, suz, nlay, mud)]
+            return [z, wall, far, rdet, bot, fzr, sfz, suz, nlay, mud,
+                    *stage_sources(batch_tasks, batch_grids, B)]
+
+        def host_arrays(start):
+            """The host half of staging: this rank's share of one chunk, its
+            grids built if they were not (the "mesh" phase), stacked into
+            numpy arrays (the "stack" phase). No device work, so it may run on
+            the pipeline's thread."""
+            batch_tasks, batch_grids, pad = share(start)
+            with self.timers.phase("stack"):
+                if is_light:
+                    return host_light(batch_tasks, batch_grids, pad)
+                B = lanes  # pad to a full share: one tensor shape for every dispatch
+                coords = np.zeros((B,) + g0.coords.shape, dtype=dtype)
+                sigma = np.zeros((B,) + cell_shape, dtype=dtype)
+                free = np.zeros((B,) + tuple(grid_shape), dtype=bool)
+                for bi, g in enumerate(batch_grids):
+                    coords[bi] = g.coords
+                    sigma[bi] = g.sigma_cells
+                    free[bi] = g.free_mask
+                # Keep padded lanes numerically benign: real coords, sigma 1.
+                for bi in range(len(batch_tasks), B):
+                    coords[bi] = pad.coords
+                    sigma[bi] = 1.0
+                    free[bi] = pad.free_mask
+                return [coords, sigma, free, *stage_sources(batch_tasks, batch_grids, B)]
+
+        def host_arrays_ahead(start):
+            """:func:`host_arrays` on the pipeline's thread, its phases timed
+            as "mesh_ahead" and "stack_ahead" (they overlap the solve)."""
+            with self.timers.suffixed("_ahead"):
+                return host_arrays(start)
+
+        def place(arrays):
+            """The device half of staging (the "stage" phase): the arrays on
+            the device, meshed there under device meshing."""
+            out = [self._tensor(a) for a in arrays]
+            if not is_light:
+                return out
             spec = cfg.spec
             coords, sigma, free = device_mesh_2d(
-                *profiles,
+                *out[:-2],
                 float(dtype(g0.domain_radius)),
                 nz=spec.nz,
                 nr=spec.nr,
@@ -857,29 +915,7 @@ class Executor:
                 n_blend_cells=spec.n_blend_cells,
                 blend_m0=spec.blend_m0,
             )
-            return [coords, sigma, free, *stage_sources(batch_tasks, batch_grids, B)]
-
-        def stage(start):
-            """Stack this rank's share of one chunk's host-built arrays and place
-            them on the device."""
-            if is_light:
-                return stage_light(start)
-            batch_tasks, batch_grids, pad = share(start)
-            B = lanes  # pad to a full share: one tensor shape for every dispatch
-            coords = np.zeros((B,) + g0.coords.shape, dtype=dtype)
-            sigma = np.zeros((B,) + cell_shape, dtype=dtype)
-            free = np.zeros((B,) + tuple(grid_shape), dtype=bool)
-            for bi, g in enumerate(batch_grids):
-                coords[bi] = g.coords
-                sigma[bi] = g.sigma_cells
-                free[bi] = g.free_mask
-            # Keep padded lanes numerically benign: real coords, sigma 1.
-            for bi in range(len(batch_tasks), B):
-                coords[bi] = pad.coords
-                sigma[bi] = 1.0
-                free[bi] = pad.free_mask
-            return [self._tensor(coords), self._tensor(sigma), self._tensor(free),
-                    *stage_sources(batch_tasks, batch_grids, B)]
+            return [coords, sigma, free, *out[-2:]]
 
         def solve(args):
             timings = {}
@@ -917,24 +953,49 @@ class Executor:
                     mg_power_iters=cfg.mg_power_iters,
                     mg_line_steps=cfg.mg_line_steps,
                     mg_smoother=cfg.mg_smoother,
+                    timings=timings,
                 )
             u_axis, rel_res, iters = out
             host = u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
             if "factor" in timings:  # read behind the copies: the device has passed it
                 self.last_report["factor_seconds"] += timings["factor"]()
-            return host
+            return host, timings["graph"]
 
-        # One chunk at a time: the CG loop syncs with the device every
-        # iteration, so there is no solve to overlap host work with yet.
+        # The pipeline: while a chunk solves, the next window - 1 chunks are
+        # meshed and stacked on one background thread (the native mesher's
+        # ctypes calls and the host's waits on the device release the GIL);
+        # the first chunk is meshed and stacked here, before the pipeline
+        # starts. The device work (copies, device meshing, the solve, all on
+        # the solve stream) stays in order on this thread, so the chunks, their
+        # arithmetic and the checkpoints are those of a window of 1.
+        window = max(1, int(cfg.pipeline_window))
+        todo = [s for s in range(0, B_total, chunk) if s not in done_chunks]
+        pending: dict = {}  # chunk start -> future of its host arrays
         n_failed_total = n_nan_total = 0
-        with self._profiled(rank):
-            for start in (s for s in range(0, B_total, chunk) if s not in done_chunks):
-                batch_tasks, batch_grids, _ = share(start)  # meshes before staging
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(self._profiled(rank))
+            stack.enter_context(solve_stream(self.device))
+            ahead = None
+            if window > 1 and len(todo) > 1:
+                ahead = ThreadPoolExecutor(1, "remo3d-pipeline")
+                stack.callback(ahead.shutdown, wait=True, cancel_futures=True)
+            for i, start in enumerate(todo):
+                if start in pending:  # what the pipeline did not hide
+                    with self.timers.phase("pipeline_wait"):
+                        arrays = pending.pop(start).result()
+                else:
+                    arrays = host_arrays(start)
+                if ahead is not None:
+                    for nxt in todo[i + 1 : i + window]:
+                        if nxt not in pending:
+                            pending[nxt] = ahead.submit(host_arrays_ahead, nxt)
+                batch_tasks, batch_grids, _ = share(start)
                 with self.timers.phase("stage"):
-                    args = stage(start)
+                    args = place(arrays)
+                del arrays
                 with self.timers.phase("solve"), torch.profiler.record_function(
                         "remo3d_tpu_torch.solve_chunk"):
-                    u_axis, rel_res, iters = solve(args)
+                    (u_axis, rel_res, iters), graph = solve(args)
                 del args
                 n_failed = 0
                 n_nan = 0
@@ -972,6 +1033,7 @@ class Executor:
                         "iterations": iters,
                         "worst_residual": worst,
                         "failed_solves": n_failed,
+                        **graph,
                     }
                 )
                 n_failed_total += n_failed

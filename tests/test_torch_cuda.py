@@ -25,7 +25,7 @@ from remo3d_tpu_torch import Model
 from remo3d_tpu_torch.kernels import stencil2d, stencil3d
 from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
 from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
-from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d
+from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d, cg
 from remo3d_tpu_torch.ops.stencil import stencil_apply
 from remo3d_tpu_torch.ops.stencil3d import pole_project, stencil3d_apply
 
@@ -381,6 +381,60 @@ def test_small_differentiable_log_on_card(cuda_device, dim):
     assert np.abs(J - J_cpu).max() <= 1e-3 * np.abs(J_cpu).max()
     g_fwd = np.einsum("mtp,mt->p", J, w.cpu().numpy())
     assert np.abs(g.cpu().numpy() - g_fwd).max() <= 2e-3 * np.abs(g_fwd).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,route", [(2, "multigrid"), (2, "direct"), (3, "adi"),
+                                       (3, "direct")])
+def test_graphed_cg_matches_op_by_op(cuda_device, dim, route):
+    """A small float32 log of one solve per batch (2D 97x33, 3D 49x9x17) in
+    chunks of 2 batches, with ops/cg.py's CUDA graphs on and off: bit-equal readouts,
+    the same CG iterations per chunk and the same kernel launches; each chunk
+    replays its graph once per iteration after the first."""
+    tools = ["A2.0M0.5N", "B5.7A0.4M"]
+    if dim == 2:
+        kernel, key = stencil2d, "preconditioner"
+        depths, form, bore = np.array([-0.4, -0.2, 0.0, 0.3, 0.6]), BM3_FORMATION, BM3_BOREHOLE
+        kw = dict(grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2))
+        overrides = {"chunk_size": 2}
+    else:
+        kernel, key = stencil3d, "precond3d"
+        depths, form, bore = np.array([11.5, 12.5, 13.5]), BM3_FORMATION, BM3_BOREHOLE
+        kw = dict(dip=30, grid_spec3d=GridSpec3D(nz=49, np_=9, nr=17, n_wall_cells=3,
+                                                  n_blend_cells=2))
+        overrides = {"chunk_size_3d": 2}
+    runs = {}
+    for graphs in (True, False):
+        cg.GRAPHS = graphs
+        try:
+            before = kernel.LAUNCHES
+            m = Model.compute_synthetic_logs(
+                tools, depths, form, bore, borehole_geometry_type="radius", device="cuda",
+                batch_size=1, verbose=False, executor_overrides={key: route, **overrides}, **kw)
+            runs[graphs] = (m, kernel.LAUNCHES - before)
+        finally:
+            cg.GRAPHS = True
+    (mg, ng), (me, ne) = runs[True], runs[False]
+    chunks = mg.last_report["chunks"]
+    assert len(chunks) >= 2 and ng == ne > 0
+    assert [c["iterations"] for c in chunks] == [c["iterations"] for c in me.last_report["chunks"]]
+    assert all(c["replays"] == c["iterations"] - 1 for c in chunks)
+    assert all(c["capture_seconds"] > 0 for c in chunks if c["replays"])
+    assert all(c["replays"] == 0 for c in me.last_report["chunks"])
+    for t in tools:
+        np.testing.assert_array_equal(mg.logs[t], me.logs[t])
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device):
+    """A preconditioner that reads the device from the host cannot be
+    captured: pcg raises, and does not run the loop op by op instead."""
+    C = torch.as_tensor(random_symmetric_stencil_2d(np.random.default_rng(2), 1, 17, 9),
+                        device=cuda_device)
+    C[..., 1, 1] += 4.0
+    b = torch.ones((1, 2, 17, 9), device=cuda_device, dtype=C.dtype)
+    with pytest.raises(RuntimeError, match="captur"):
+        cg.pcg(C, b, M_inv=lambda r: r / float(r.abs().max()), tol=1e-12, maxiter=50)
 
 
 @pytest.mark.cuda
