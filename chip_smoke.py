@@ -105,11 +105,25 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     order, and the BM3 dip ladder 0-60 NaN-free within its residual bound;
 29. the benchmark entry point, ``python -m remo3d_tpu_torch.bench --repeats
     2``, in a child: its one line parses, is ok with no NaN, K1 launched in
-    its 2D workload and K2 in its 3D one, ``0 < bw_util_* <= 1``, and each
-    median wall lies within 2x of the phase 4 / phase 8 wall of this run.
-The launch counts of K1 and K2 are read around every script of 25-28.
+    its 2D workload and K2 in its 3D one, K3 in both, ``0 < bw_util_* <=
+    1``, and each warm-up wall (the first full-size call of a fresh process,
+    as phase 4's and phase 8's are) lies within 2x of the phase 4 / phase 8
+    wall of this run;
+30. kernel K3 (``pcr_lines``, the factored PCR line apply) against its plain
+    version, float32 and float64, at every line shape of phases 4 and 8
+    (each multigrid level of the 2D log in r and z, with and without the
+    solve axis; the 3D chunk's z, p and r lines), each timed against its
+    bound and the plain version, with registers, shared memory, lines per
+    tile and resident blocks per SM;
+31. phase 4's 2D log with K3 off, on, on with the CG loop op by op, and off
+    again (``ops.lines.PCR_KERNEL``): K3 on against off within LOG_REL, CG
+    iterations per chunk within 1, K3 launched in every CG iteration with it
+    on and never with it off; graphed against op by op as in phase 4;
+32. the same for phase 8's 3D log, within LOG3D_REL_PAIR.
+The launch counts of K1, K2 and K3 are read around every script of 25-28.
 
-Every phase group (3-6, 7-11, 12-15, 16-19, 20-24, 25-28) runs in a child process
+Every phase group (3-6, 7-11, 12-15, 16-19, 20-24, 25-28, 30-32) runs in a
+child process
 (``python3 chip_smoke.py --phase <group>``), and phase 29 as the bench's own
 command, under ``timeout -k 10 <limit>``
 (:data:`GROUP_LIMITS`, about three times the group's time on an H100), so a
@@ -119,9 +133,9 @@ is a JSON object with its results, from which the parent assembles the
 kernels line. The line before the last is a JSON object with one entry per
 kernel; the last is ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone, and
-``python3 chip_smoke.py --diff`` phases 16-19 (``--phase 25-28`` runs one
-group as a child would).
+``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone,
+``python3 chip_smoke.py --diff`` phases 16-19 and ``python3 chip_smoke.py
+--k3`` phases 30-32 (``--phase 25-28`` runs one group as a child would).
 ``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
 one warm phase-8 log with torch.profiler: kernel time by part and the device
 busy share (the union of kernel intervals over the wall).
@@ -279,18 +293,25 @@ JAX_BM3 = {15: "0.43% over dips 15-45", 30: "0.43% over dips 15-45",
 
 # Time limit (s) of each phase group's child: about three times the group's
 # time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~150-230
-# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180-215 s, 29 ~80-100 s) plus the
-# child's start.
+# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180-215 s, 29 ~80-100 s, 30-32
+# ~35 s) plus the child's start.
 GROUP_LIMITS = {
     "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420, "25-28": 540,
-    "29": 360, "profile3d": 600, "profile-direct": 1800, "tune-direct": 600, "tune": 600,
-    "probe": 600, "graphs": 600,
+    "29": 360, "30-32": 240, "profile3d": 600, "profile-direct": 1800, "tune-direct": 600,
+    "tune": 600, "probe": 600, "graphs": 600,
 }
-GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29"]
+GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29", "30-32"]
 # Phase 29: the bench's timed calls per workload, its limit per workload's
-# child (s), and how far its median walls may lie from phase 4's and 8's.
+# child (s), and how far its warm-up walls may lie from phase 4's and 8's
+# (each the first full-size call of its process; the timed calls' median
+# lacks the first call's set-up, 0.4-0.9 s in 2D on an H100).
 BENCH_REPEATS, BENCH_LIMIT, BENCH_WALL_RATIO = 2, 150, 2.0
-MODES = {"--screen": "12-15", "--diff": "16-19", "--profile3d": "profile3d",
+# Phase 30: K3 at the line shapes of phase 4's 2D log (its chunk of 74
+# batches of 5 solves on 761x161 and the multigrid's coarser levels) and of
+# phase 8's 3D chunk.
+K3_2D_BS, K3_2D_GRID = (74, 5), (761, 161)
+K3_3D_SHAPE = (8, 5, 193, 17, 49)
+MODES = {"--screen": "12-15", "--diff": "16-19", "--k3": "30-32", "--profile3d": "profile3d",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
          "--tune": "tune", "--probe": "probe", "--graphs": "graphs"}
 
@@ -700,16 +721,23 @@ def tune(torch, card):
 
 
 def reset_counts():
-    from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+    from remo3d_tpu_torch.kernels import pcr_lines, stencil2d, stencil3d
 
     stencil2d.LAUNCHES = 0
     stencil3d.LAUNCHES = 0
+    pcr_lines.LAUNCHES = 0
 
 
 def read_counts():
-    from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+    from remo3d_tpu_torch.kernels import pcr_lines, stencil2d, stencil3d
 
-    return {"stencil2d_half": stencil2d.LAUNCHES, "stencil3d_half": stencil3d.LAUNCHES}
+    return {"stencil2d_half": stencil2d.LAUNCHES, "stencil3d_half": stencil3d.LAUNCHES,
+            "pcr_lines": pcr_lines.LAUNCHES}
+
+
+def kernel_dicts() -> dict:
+    """One empty dict per kernel of :func:`read_counts`, for launch counts."""
+    return {"stencil2d_half": {}, "stencil3d_half": {}, "pcr_lines": {}}
 
 
 # Graphed CG loops (ops/cg.py: every iteration after the first is a replay of
@@ -783,7 +811,8 @@ def log_3d(torch, depths, **kwargs):
 
 
 def run_2d(torch, card):
-    """Phases 4-6; returns the K1 launch count and the wall of the main-path run."""
+    """Phases 4-6; returns the K1 and K3 launch counts and the wall of the
+    main-path run."""
     from remo3d_tpu_torch import Model
     from remo3d_tpu_torch.plotting import _write_tsv_groups
 
@@ -827,8 +856,9 @@ def run_2d(torch, card):
         raise AssertionError(f"{report['n_failed_solves']} failed solves")
     if not all(0 < k < 1000 for k in iters):
         raise AssertionError(f"CG iterations {iters} (maxiter 1000)")
-    if launches < 2 * sum(iters):
-        raise AssertionError(f"K1 launched {launches} times for CG iterations {iters}")
+    if launches < 2 * sum(iters) or counts["pcr_lines"] < 2 * sum(iters):
+        raise AssertionError(f"K1 / K3 launched {launches} / {counts['pcr_lines']} times for CG "
+                             f"iterations {iters}")
     if not all(c["replays"] == c["iterations"] - 1 for c in chunks):
         raise AssertionError(f"2D: CG graph replays {graph_figures(report)} for iterations {iters}")
     twin = eager_twin(torch, make_log, readouts)
@@ -901,11 +931,12 @@ def run_2d(torch, card):
     log(f"2D uniform medium {rho} ohm-m: worst |Ra/Rt - 1| = {worst_u:.2e}")
     if not worst_u <= 5e-3:
         raise AssertionError(f"uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > 5e-3")
-    return launches, elapsed
+    return launches, counts["pcr_lines"], elapsed
 
 
 def run_3d(torch, card):
-    """Phases 8-11; returns the K2 launch count and the wall of the main-path run."""
+    """Phases 8-11; returns the K2 and K3 launch counts and the wall of the
+    main-path run."""
     from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
 
     cuda32 = dict(device="cuda", dtype="float32")
@@ -942,8 +973,9 @@ def run_3d(torch, card):
         raise AssertionError(f"3D: {report['n_failed_solves']} failed solves")
     if not all(0 < k < 1000 for k in iters):
         raise AssertionError(f"3D CG iterations {iters} (maxiter 1000)")
-    if launches < 5 * sum(iters):
-        raise AssertionError(f"K2 launched {launches} times for CG iterations {iters}")
+    if launches < 5 * sum(iters) or counts["pcr_lines"] < 5 * sum(iters):
+        raise AssertionError(f"K2 / K3 launched {launches} / {counts['pcr_lines']} times for CG "
+                             f"iterations {iters}")
     if not all(c["replays"] == c["iterations"] - 1 for c in chunks):
         raise AssertionError(f"3D: CG graph replays {graph_figures(report)} for iterations {iters}")
     twin = eager_twin(torch, lambda: log_3d(torch, DEPTHS_3D, **cuda32),
@@ -1001,7 +1033,7 @@ def run_3d(torch, card):
         f"(limit {UNIFORM3D_REL:g})")
     if not worst_u <= UNIFORM3D_REL:
         raise AssertionError(f"3D uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > {UNIFORM3D_REL}")
-    return launches, elapsed
+    return launches, counts["pcr_lines"], elapsed
 
 
 def mesh_seconds(report) -> float:
@@ -1732,12 +1764,11 @@ def tune_direct(torch, card):
 
 
 def profile_3d(torch, card):
-    """One warm phase-8 log under torch.profiler: kernel time of K2, of the
-    PCR line apply, of the pole projection and of the rest, and the device
-    busy share (union of kernel intervals over the profiled wall)."""
+    """One warm phase-8 log under torch.profiler: kernel time of K2, of K3
+    (the PCR line apply), of the pole projection and of the rest, and the
+    device busy share (union of kernel intervals over the profiled wall)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from remo3d_tpu_torch.ops import lines3d
     from remo3d_tpu_torch.parallel import runtime
 
     def ranged(name, fn):
@@ -1746,7 +1777,6 @@ def profile_3d(torch, card):
                 return fn(*a, **k)
         return wrapped
 
-    lines3d.pcr_apply = ranged("pcr_apply", lines3d.pcr_apply)
     runtime.pole_project = ranged("pole_project", runtime.pole_project)
     cuda32 = dict(device="cuda", dtype="float32")
     log_3d(torch, DEPTHS_3D, **cuda32)  # warm-up
@@ -1757,15 +1787,16 @@ def profile_3d(torch, card):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
-    names = ("pcr_apply", "pole_project")
+    names = ("pole_project",)
     kernels, total, busy = device_activity(torch, events, names)
     k2 = sum(e.device_time_total for e in kernels if "stencil3d_half" in e.name) / 1e3
+    k3 = sum(e.device_time_total for e in kernels if "pcr_lines" in e.name) / 1e3
     ranges = {
         name: sum(e.device_time_total for e in events
                   if e.name == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
         for name in names
     }
-    rest = total - k2 - sum(ranges.values())
+    rest = total - k2 - k3 - sum(ranges.values())
     iters = [c["iterations"] for c in model.last_report["chunks"]]
     n_pole = sum(1 for e in events
                  if e.name == "pole_project" and e.device_type == torch.autograd.DeviceType.CPU)
@@ -1774,7 +1805,7 @@ def profile_3d(torch, card):
         f"CG iteration")
     log(f"profile: kernel time {total:.1f} ms; busy (union of kernel intervals) {busy:.1f} ms = "
         f"{busy / wall_ms:.3f} of the wall")
-    for name, ms in (("K2 stencil3d_half", k2), ("PCR line apply", ranges["pcr_apply"]),
+    for name, ms in (("K2 stencil3d_half", k2), ("K3 pcr_lines (PCR line apply)", k3),
                      ("pole_project", ranges["pole_project"]), ("rest", rest)):
         log(f"profile:   {name}: {ms:.1f} ms ({ms / total:.1%} of kernel time)" if total else
             f"profile:   {name}: no device time recorded")
@@ -2168,7 +2199,7 @@ def two_ranks(torch, card):
 
 def run_rest(torch, card):
     """Phases 20-24; returns the launch counts per kernel for the kernels line."""
-    out = {"stencil2d_half": {}, "stencil3d_half": {}}
+    out = kernel_dicts()
     native_mesher(torch, card)  # 20
     out["stencil2d_half"]["launches_oracle"] = oracle_log(torch, card)  # 21
     out["stencil2d_half"]["launches_resume"] = checkpoint_resume(torch, card)  # 22
@@ -2307,7 +2338,7 @@ def run_parity(torch, card, out):
 def run_scripts(torch, card):
     """Phases 25-28; returns the launch counts per kernel and script. A gate
     that fails is raised after the last phase, with every other one."""
-    out = {"stencil2d_half": {}, "stencil3d_half": {}}
+    out = kernel_dicts()
     faults = []
     for phase in (c2_on_card, run_examples, run_validation, run_parity):  # 25, 26, 27, 28
         try:
@@ -2335,12 +2366,16 @@ def bench_phase(walls: dict) -> dict:
     if not isinstance(line, dict) or run["status"] == "cut":
         raise AssertionError(f"bench: {run['status']}, no line")
     faults = [] if line.get("ok") is True else [f"not ok: {line.get('failures')}"]
-    launches = {"stencil2d_half": {}, "stencil3d_half": {}}
+    launches = kernel_dicts()
     for dim, kernel in (("2d", "stencil2d_half"), ("3d", "stencil3d_half")):
         layers = (line.get("layers") or {}).get(dim) or {}
         n = (layers.get("launches") or {}).get(kernel, 0)
         launches[kernel][f"launches_bench_{dim}"] = n
-        bw, wall = line.get(f"bw_util_{dim}"), line.get(f"elapsed_{dim}_s")
+        n3 = (layers.get("launches") or {}).get("pcr_lines", 0)
+        launches["pcr_lines"][f"launches_bench_{dim}"] = n3
+        if not n3 > 0:
+            faults.append(f"{dim}: pcr_lines launched {n3} times")
+        bw, wall = line.get(f"bw_util_{dim}"), line.get(f"warmup_{dim}_s")
         if line.get(f"n_nan_{dim}") != 0:
             faults.append(f"{dim}: n_nan {line.get(f'n_nan_{dim}')}")
         if not n > 0:
@@ -2351,13 +2386,170 @@ def bench_phase(walls: dict) -> dict:
             faults.append(f"{dim}: runs {line.get(f'runs_{dim}_s')}")
         if dim in walls:
             ratio = wall / walls[dim] if wall else float("nan")
-            log(f"bench {dim}: median {wall} s against phase {4 if dim == '2d' else 8}'s "
-                f"{walls[dim]:.3f} s: {ratio:.3f}x")
+            log(f"bench {dim}: warm-up {wall} s (median {line.get(f'elapsed_{dim}_s')} s) "
+                f"against phase {4 if dim == '2d' else 8}'s {walls[dim]:.3f} s: {ratio:.3f}x")
             if not 1 / BENCH_WALL_RATIO <= ratio <= BENCH_WALL_RATIO:
-                faults.append(f"{dim}: median wall {wall} s against {walls[dim]:.3f} s")
+                faults.append(f"{dim}: warm-up wall {wall} s against {walls[dim]:.3f} s")
     if faults:
         raise AssertionError("phase 29: " + "; ".join(faults))
     return launches
+
+
+def k3_shapes() -> list:
+    """(label, B, S or None, grid, axis) of every K3 launch of phases 4 and 8:
+    per multigrid level of the 2D log its z and r lines, on the chunk's S
+    solves and (the power iterations) on one vector per batch; the 3D
+    chunk's z, p and r lines."""
+    from remo3d_tpu_torch.parallel.runtime import _feasible_mg_levels
+
+    (B, S), (nz, nr) = K3_2D_BS, K3_2D_GRID
+    out = []
+    for lvl in range(_feasible_mg_levels(nz, nr)):
+        grid = ((nz - 1) // 2**lvl + 1, (nr - 1) // 2**lvl + 1)
+        for d, axis in (("z", -2), ("r", -1)):
+            out.append((f"2D level {lvl} {d}", B, S, grid, axis))
+            out.append((f"2D level {lvl} {d}, power iteration", B, None, grid, axis))
+    B, S, *grid = K3_3D_SHAPE
+    for d, axis in (("z", -3), ("p", -2), ("r", -1)):
+        out.append((f"3D {d}", B, S, tuple(grid), axis))
+    return out
+
+
+def check_k3(torch, card):
+    """Phase 30: K3 against its plain version at every shape of
+    :func:`k3_shapes`, float32 and float64, on random diagonally dominant
+    lines (an M-matrix, as the FEM operators' lines are); each timed (median
+    of 25 CUDA-event timings, interleaved with the plain version) beside its
+    bound (``pcr_lines.least_work``): b read and x written once per solve, the
+    coefficients that the function reads once per batch (alpha_k at i >= s,
+    beta_k at i < n - s, then dinv); 4 flops per coefficient term and solve,
+    and one for dinv.
+    Returns a row per shape and type; the first (2D finest z lines,
+    float32) is the kernels line's."""
+    from remo3d_tpu_torch.kernels import pcr_lines
+    from remo3d_tpu_torch.ops.lines import pcr_factor_stacked
+
+    rng = np.random.default_rng(2024)
+    rows, faults = [], []
+    for label, B, S, grid, axis in k3_shapes():
+        shape = (B, *grid)
+        dl, du = -rng.uniform(0.1, 1.0, shape), -rng.uniform(0.1, 1.0, shape)
+        d = -(dl + du) + rng.uniform(0.05, 0.5, shape)
+        b64 = rng.standard_normal(shape if S is None else (B, S, *grid))
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            F = pcr_factor_stacked(*(torch.as_tensor(a, device="cuda").to(dt) for a in (dl, d, du)),
+                                   axis=axis, stack_dim=1)
+            b = torch.as_tensor(b64, device="cuda").to(dt)
+            x_k = pcr_lines.pcr_apply_lines(F, b, axis)
+            x_p = pcr_lines.pcr_apply_lines_plain(F, b, axis)
+            torch.cuda.synchronize()
+            err = float((x_k - x_p).abs().max())
+            rel = err / float(x_p.abs().max())
+            for _ in range(3):  # warm-up
+                pcr_lines.pcr_apply_lines(F, b, axis)
+                pcr_lines.pcr_apply_lines_plain(F, b, axis)
+            k_ms, p_ms = [], []
+            for _ in range(25):
+                p_ms.append(time_ms(torch, lambda: pcr_lines.pcr_apply_lines_plain(F, b, axis)))
+                k_ms.append(time_ms(torch, lambda: pcr_lines.pcr_apply_lines(F, b, axis)))
+            k, p = float(np.median(k_ms)), float(np.median(p_ms))
+            L, solves = (F.shape[1] - 1) // 2, S or 1
+            n_bytes, flops = map(float, pcr_lines.least_work(B, solves, grid, axis, L,
+                                                             F.element_size()))
+            b_ms, b_by = bound_ms(n_bytes, flops, name)
+            info = pcr_lines.kernel_info(B, solves, grid, axis, dt)
+            row = {"shape": label, "b": list(b.shape), "axis": axis, "levels": L, "dtype": name,
+                   "max_abs_err": err, "rel_err": rel, "ms": k, "plain_ms": p, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None, **info}
+            rows.append(row)
+            log(f"K3 {label} {name} b {tuple(b.shape)} axis {axis}, L = {L}: max|kernel-plain| = "
+                f"{err:.3e}, relative to max|x| {rel:.3e} (tolerance {TOL_REL[name]:g}); kernel "
+                f"{k:.4f} ms, plain {p:.4f} ms (median of 25); bound {b_ms:.4f} ms by {b_by} "
+                f"({n_bytes / 1e6:.1f} MB): kernel at {b_ms / k:.1%} of it, "
+                f"{n_bytes / (k * 1e-3) / 1e9:.0f} GB/s; {info['registers']} registers, "
+                f"{info['spill_bytes']} B spilled, {info['smem_bytes']} B shared memory per "
+                f"block, {info['tile_rows']} lines per tile, {info['blocks_per_sm']} blocks of "
+                f"256 threads per SM ({card})")
+            if not rel <= TOL_REL[name]:
+                faults.append(f"{label} {name}: rel err {rel:.3e} > {TOL_REL[name]}")
+            if info["blocks_per_sm"] < 1:
+                faults.append(f"{label} {name}: no block fits an SM")
+            del F, b, x_k, x_p
+        torch.cuda.empty_cache()
+    if faults:  # after every shape was printed
+        raise AssertionError("K3: " + "; ".join(faults))
+    return rows
+
+
+def k3_off(fn):
+    """``fn()`` with K3 off (``ops.lines.PCR_KERNEL``): the line solves
+    through the plain ``pcr_apply`` on the card."""
+    from remo3d_tpu_torch.ops import lines
+
+    lines.PCR_KERNEL = False
+    try:
+        return fn()
+    finally:
+        lines.PCR_KERNEL = True
+
+
+def k3_on_off(torch, card, label, make_log, readouts, rel_gate, per_iteration) -> dict:
+    """Phases 31 and 32: ``make_log()`` with K3 off, on, on with the CG loop
+    op by op, and off again, each counted like the main path. K3 on against
+    the first run off: readouts within ``rel_gate`` (relative), CG iterations
+    per chunk within 1; K3 launched at least ``per_iteration`` times per CG
+    iteration with it on, never with it off; on against op by op as in phase
+    4. Returns the launch counts and walls for the kernels line."""
+    runs = {}
+    for key, wrap in (("off", k3_off), ("on", lambda f: f()), ("on, op by op", eager),
+                      ("off again", k3_off)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        model = wrap(make_log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        report = model.last_report
+        runs[key] = {"vals": readouts(model), "launches": read_counts(), "wall": wall,
+                     "iterations": [c["iterations"] for c in report["chunks"]]}
+        log(f"{label} on {card}, K3 {key}: {wall:.3f} s, CG iterations "
+            f"{runs[key]['iterations']}, launches {runs[key]['launches']}; phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in report["phases"].items())
+            + f"; {graph_figures(report)}")
+    on, off = runs["on"], runs["off"]
+    faults = graph_vs_eager(f"{label} with K3", on, runs["on, op by op"])
+    rel = float(np.max(np.abs(on["vals"] / off["vals"] - 1)))
+    log(f"{label}: K3 on against off: readouts {rel:.3e} (limit {rel_gate:g}), CG iterations "
+        f"{on['iterations']} / {off['iterations']}, K3 launches {on['launches']['pcr_lines']} / "
+        f"{off['launches']['pcr_lines']}; wall {on['wall']:.3f} s on against "
+        f"{off['wall']:.3f} / {runs['off again']['wall']:.3f} s off")
+    if not (np.isfinite(on["vals"]).all() and rel <= rel_gate):
+        faults.append(f"{label}: K3 on vs off readouts {rel:.3e} > {rel_gate}")
+    if len(on["iterations"]) != len(off["iterations"]) or any(
+            abs(a - b) > 1 for a, b in zip(on["iterations"], off["iterations"])):
+        faults.append(f"{label}: CG iterations {on['iterations']} on, {off['iterations']} off")
+    if on["launches"]["pcr_lines"] < per_iteration * sum(on["iterations"]):
+        faults.append(f"{label}: K3 launched {on['launches']['pcr_lines']} times for CG "
+                      f"iterations {on['iterations']}")
+    if off["launches"]["pcr_lines"] or runs["off again"]["launches"]["pcr_lines"]:
+        faults.append(f"{label}: K3 launched with it off")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return {"launches": on["launches"]["pcr_lines"], "wall_on_s": on["wall"],
+            "wall_off_s": [off["wall"], runs["off again"]["wall"]]}
+
+
+def run_k3(torch, card) -> dict:
+    """Phases 30-32."""
+    rows = check_k3(torch, card)  # 30
+    logs = {
+        "2d": k3_on_off(torch, card, "2D log (phase 31)", lambda: log_2d(torch, DEPTHS),
+                        readouts_2d, LOG_REL, 2),
+        "3d": k3_on_off(torch, card, "3D log (phase 32)",
+                        lambda: log_3d(torch, DEPTHS_3D, device="cuda", dtype="float32"),
+                        lambda m: m.logs[TOOLS_3D[0]][:, 1], LOG3D_REL_PAIR, 5),
+    }
+    return {"shapes": rows, "logs": logs}
 
 
 def check_checkout(torch):
@@ -2394,14 +2586,14 @@ def run_group(group: str) -> dict:
     if group == "3-6":
         info = report_kernel_info(torch)  # 2: what the built kernels use
         k1 = check_k1(torch)  # 3
-        k1["launches"], wall = run_2d(torch, card)  # 4-6
-        return {"k1": k1, "wall_s": wall,
+        k1["launches"], k3, wall = run_2d(torch, card)  # 4-6
+        return {"k1": k1, "wall_s": wall, "launches_pcr_2d": k3,
                 "info": {"stencil2d_half": info["K1 float32 S=5 NR=161"],
                          "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"]}}
     if group == "7-11":
         k2 = check_k2(torch)  # 7
-        k2["launches"], wall = run_3d(torch, card)  # 8-11
-        return {"k2": k2, "wall_s": wall}
+        k2["launches"], k3, wall = run_3d(torch, card)  # 8-11
+        return {"k2": k2, "wall_s": wall, "launches_pcr_3d": k3}
     if group == "12-15":
         return {"screen": run_screen(torch, card)}
     if group == "16-19":
@@ -2411,6 +2603,8 @@ def run_group(group: str) -> dict:
         return {"launches": run_rest(torch, card)}
     if group == "25-28":
         return {"launches": run_scripts(torch, card)}
+    if group == "30-32":
+        return {"k3": run_k3(torch, card)}
     if group == "graphs":
         return {"graphs": graph_turns(torch, card)}
     {"profile3d": profile_3d, "profile-direct": profile_direct, "tune-direct": tune_direct,
@@ -2514,6 +2708,25 @@ def main() -> int:
         k2.update(results[g]["launches"]["stencil3d_half"])
     k1.update(results["29"]["stencil2d_half"])
     k2.update(results["29"]["stencil3d_half"])
+    k3_run = results["30-32"]["k3"]
+    main = k3_run["shapes"][0]  # 2D finest z lines, float32
+    k3 = {key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}
+    k3["launches_pcr_2d"] = results["3-6"]["launches_pcr_2d"]
+    k3["launches_pcr_3d"] = results["7-11"]["launches_pcr_3d"]
+    k3["launches"] = k3["launches_pcr_2d"] + k3["launches_pcr_3d"]
+    for dim, row in k3_run["logs"].items():
+        k3[f"launches_pcr_on_off_{dim}"] = row["launches"]
+    for row in rows:  # the iterative preconditioners' first, graphed runs
+        if row["preconditioner"] in ("multigrid", "adi") and row["cg_loop"] == "graph":
+            k3.setdefault(f"launches_screen_{row['preconditioner']}", row["launches"]["pcr_lines"])
+    for g in ("20-24", "25-28"):
+        k3.update(results[g]["launches"]["pcr_lines"])
+    k3.update(results["29"]["pcr_lines"])
+    k3["shapes"] = [{key: r[key] for key in ("shape", "b", "axis", "dtype", "ms", "plain_ms",
+                                             "bound_ms", "rel_err", "registers", "smem_bytes",
+                                             "tile_rows", "blocks_per_sm")}
+                    for r in k3_run["shapes"]]
 
     log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
     log(card)
@@ -2531,6 +2744,15 @@ def main() -> int:
             "source": "remo3d_tpu_torch/csrc/stencil3d.cu",
             "replaces": "remo3d_tpu/ops/pallas_stencil.py:191",
             **k2,
+        },
+        {
+            "name": "pcr_lines",
+            "route": "cuda",
+            "source": "remo3d_tpu_torch/csrc/pcr_lines.cu",
+            "replaces": "remo3d_tpu/ops/pallas_lines2d.py:116 and "
+                        "remo3d_tpu/ops/pallas_lines3d.py:74 at 9fd23cb^ (removed; today "
+                        "remo3d_tpu/ops/lines.py:111)",
+            **k3,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

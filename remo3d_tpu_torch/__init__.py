@@ -7,7 +7,8 @@ PCG), a dip the 3D dipping-layer solver (ADI line-preconditioned PCG), in torch
 on one device per process (several processes split a log over
 ``parallel.distributed``). The 9-point and 27-point stencil applies are hand-written CUDA
 kernels for Hopper (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``), with their
-gradients. ``DifferentiableLog`` exposes a log as a differentiable torch
+gradients, and so are the PCR line solves of both preconditioners
+(``csrc/pcr_lines.cu``). ``DifferentiableLog`` exposes a log as a differentiable torch
 function of the formation resistivities. Imports torch and numpy, never JAX.
 """
 

@@ -60,9 +60,11 @@ import numpy as np
 import torch
 
 from .examples.common import launches, launches_since
+from .kernels.pcr_lines import coefficient_values
 from .meshing.grid2d import GridSpec2D
 from .meshing.grid3d import GridSpec3D
 from .model import Model
+from .ops import lines
 from .ops.lines import _n_steps
 from .parallel.runtime import _feasible_mg_levels
 from .validation.models import (
@@ -111,9 +113,13 @@ KERNEL_NAME_CHARS = 120  # kernel names are cut here (templates run to 1000s)
 # ----------------------------------------------------------------------------------
 
 
-def _pcr_apply(k: int, vec: int, plane: int) -> int:
-    """A factored PCR line apply of k levels: per level x, alpha, beta read and
-    x written; then x * dinv."""
+def _pcr_apply(k: int, vec: int, plane: int, n: int, kernel: bool = False) -> int:
+    """A factored PCR line apply of k levels on lines of n nodes: per level x,
+    alpha, beta read and x written; then x * dinv. With K3 (``kernel``), its
+    least bytes: b read and x written once, and of each line the coefficients
+    that the function reads (``pcr_lines.coefficient_values``) once."""
+    if kernel:
+        return 2 * vec + plane // n * coefficient_values(n, k)
     return k * (2 * vec + 2 * plane) + 2 * vec + plane
 
 
@@ -154,11 +160,13 @@ def _load_2d(B, S, nz, nr, f):
 
 
 def traffic_multigrid_2d(B, S, nz, nr, iterations, *, itemsize=4, n_levels=4, degree=2,
-                         coarse_degree=24, power_iters=6, kernel_levels=2, line_steps=None):
+                         coarse_degree=24, power_iters=6, kernel_levels=2, line_steps=None,
+                         pcr_kernel=False):
     """2D PCG under the Galerkin multigrid V-cycle (``ops/multigrid.py``,
     smoother ``line_rz``): K1 (5 planes) on the ``kernel_levels`` finest
     levels, the 9-point apply below; Chebyshev of ``degree`` before and after
-    the coarse correction, ``coarse_degree`` on the coarsest level. Setup:
+    the coarse correction, ``coarse_degree`` on the coarsest level; the line
+    solves through K3 with ``pcr_kernel``. Setup:
     assembly, load, per level the inverse diagonal, both line factorizations,
     the half planes (the CG matvec's again), the power iterations and the
     Galerkin product."""
@@ -168,11 +176,13 @@ def traffic_multigrid_2d(B, S, nz, nr, iterations, *, itemsize=4, n_levels=4, de
         nzl, nrl = (nz - 1) // 2**l + 1, (nr - 1) // 2**l + 1
         n = nzl * nrl
         levels.append(dict(p=B * n * f, v=S * B * n * f, m=B * n,
+                           nz=nzl, nr=nrl,
                            kz=_n_steps(nzl, line_steps), kr=_n_steps(nrl, line_steps),
                            planes=5 if l < kernel_levels else 9))
 
     def line_rz(L, vec, plane):
-        return _pcr_apply(L["kr"], vec, plane) + _pcr_apply(L["kz"], vec, plane) + 3 * vec
+        return (_pcr_apply(L["kr"], vec, plane, L["nr"], pcr_kernel)
+                + _pcr_apply(L["kz"], vec, plane, L["nz"], pcr_kernel) + 3 * vec)
 
     def apply_(L):
         return L["planes"] * L["p"] + 2 * L["v"]
@@ -255,21 +265,24 @@ def _matvec_3d(p, v, use_kernel):
     return 14 * p + 2 * v if use_kernel else 27 * p + 2 * v + 4 * v
 
 
-def traffic_adi_3d(B, S, nz, np_, nr, iterations, *, itemsize=4, use_kernel=True):
+def traffic_adi_3d(B, S, nz, np_, nr, iterations, *, itemsize=4, use_kernel=True,
+                   pcr_kernel=False):
     """3D pole-tied PCG under the damped z-p-r-p-z ADI sweep
     (``parallel/runtime._pcg3``): per apply a pole tie of r, the z line solve,
     then for p, r, p, z a residual (the operator and r - Az), the line solve,
-    a pole tie and the update; each pole tie copies the vector (2V). Setup:
-    assembly, load, the z, p, r line factorizations."""
+    a pole tie and the update; each pole tie copies the vector (2V); the line
+    solves through K3 with ``pcr_kernel``. Setup: assembly, load, the z, p, r
+    line factorizations."""
     f = itemsize
     n = nz * np_ * nr
     p, v = B * n * f, S * B * n * f
-    k = {"z": _n_steps(nz, None), "p": _n_steps(np_, None), "r": _n_steps(nr, None)}
+    lengths = {"z": nz, "p": np_, "r": nr}
+    k = {d: _n_steps(m, None) for d, m in lengths.items()}
     matvec = _matvec_3d(p, v, use_kernel)
     pole = 2 * v
-    sweep = pole + _pcr_apply(k["z"], v, p) + pole + 2 * v
+    sweep = pole + _pcr_apply(k["z"], v, p, nz, pcr_kernel) + pole + 2 * v
     for d in ("p", "r", "p", "z"):
-        sweep += matvec + 3 * v + _pcr_apply(k[d], v, p) + pole + 3 * v
+        sweep += matvec + 3 * v + _pcr_apply(k[d], v, p, lengths[d], pcr_kernel) + pole + 3 * v
     setup = _load_3d(B, S, nz, np_, nr, f, use_kernel) + sum(_pcr_factor(k[d], p) for d in k)
     return setup + _cg(iterations, v, matvec, sweep)
 
@@ -315,11 +328,13 @@ def solve_traffic_bytes(config, report, is_3d: bool) -> int | None:
         return None
     f = np.dtype(config.dtype).itemsize
     kernel = config.use_stencil_kernel
+    pcr = torch.device(config.device).type == "cuda" and lines.PCR_KERNEL  # K3 runs
     if is_3d:
         dims = (config.spec3d.nz, config.spec3d.np_, config.spec3d.nr)
         if config.precond3d == "adi":
             def one(it):
-                return traffic_adi_3d(B, S, *dims, it, itemsize=f, use_kernel=kernel)
+                return traffic_adi_3d(B, S, *dims, it, itemsize=f, use_kernel=kernel,
+                                      pcr_kernel=pcr)
         elif config.precond3d == "direct":
             def one(it):
                 return traffic_direct_3d(B, S, *dims, it, itemsize=f,
@@ -335,7 +350,7 @@ def solve_traffic_bytes(config, report, is_3d: bool) -> int | None:
                 return traffic_multigrid_2d(
                     B, S, nz, nr, it, itemsize=f, n_levels=n_levels, degree=config.mg_degree,
                     power_iters=config.mg_power_iters, kernel_levels=2 if kernel else 0,
-                    line_steps=config.mg_line_steps)
+                    line_steps=config.mg_line_steps, pcr_kernel=pcr)
         elif config.preconditioner == "direct":
             def one(it):
                 return traffic_direct_2d(B, S, nz, nr, it, itemsize=f,

@@ -29,10 +29,11 @@ def arguments(description: str, files: bool = True, output: bool = True):
 
 def launches() -> dict:
     """The kernels' launch counts so far (K1 ``stencil2d_half``, K2
-    ``stencil3d_half``)."""
-    from ..kernels import stencil2d, stencil3d
+    ``stencil3d_half``, K3 ``pcr_lines``)."""
+    from ..kernels import pcr_lines, stencil2d, stencil3d
 
-    return {"stencil2d_half": stencil2d.LAUNCHES, "stencil3d_half": stencil3d.LAUNCHES}
+    return {"stencil2d_half": stencil2d.LAUNCHES, "stencil3d_half": stencil3d.LAUNCHES,
+            "pcr_lines": pcr_lines.LAUNCHES}
 
 
 def launches_since(before: dict) -> dict:

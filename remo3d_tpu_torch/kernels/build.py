@@ -40,12 +40,17 @@ ENTRY_POINTS = {
     # (C, u, y, B, S, NZ, NP, NR, pole, tile_rows, stream)
     "stencil3d_half_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "stencil3d_half_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (S, NR, tile_rows, out) / (S, NP, NR, tile_rows, out): what a launch
-    # would use, see kernel_info
+    # (F, b, x, B, S, outer, n, inner, L, stream): K3 on lines (outer, n, inner)
+    "pcr_lines_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pcr_lines_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (S, NR, tile_rows, out) / (S, NP, NR, tile_rows, out) / (B, S, outer,
+    # n, inner, out): what a launch would use, see kernel_info
     "stencil2d_half_info_f32": [_I, _I, _I, _INFO],
     "stencil2d_half_info_f64": [_I, _I, _I, _INFO],
     "stencil3d_half_info_f32": [_I, _I, _I, _I, _INFO],
     "stencil3d_half_info_f64": [_I, _I, _I, _I, _INFO],
+    "pcr_lines_info_f32": [_I, _I, _I, _I, _I, _INFO],
+    "pcr_lines_info_f64": [_I, _I, _I, _I, _I, _INFO],
 }
 INFO_FIELDS = ("registers", "spill_bytes", "smem_bytes", "tile_rows", "solves_per_group",
                "blocks_per_sm")

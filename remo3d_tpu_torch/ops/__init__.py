@@ -4,8 +4,8 @@ and 27-point applies, the pole projector, PCR line solves, the Galerkin
 multigrid V-cycle, the block-direct solvers (block-LDL^T chain, cyclic
 reduction and Schur fixed point, 2D and 3D) and batched preconditioned CG.
 
-Counterparts of ``remo3d_tpu.ops``. The hot stencil applies go through the hand-written CUDA kernels in
-:mod:`remo3d_tpu_torch.kernels`.
+Counterparts of ``remo3d_tpu.ops``. The hot stencil applies and the PCR line
+solves go through the hand-written CUDA kernels in :mod:`remo3d_tpu_torch.kernels`.
 """
 
 from .assembly2d import assemble_stencil_2d  # noqa: F401

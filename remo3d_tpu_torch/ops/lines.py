@@ -8,7 +8,11 @@ vectorized elimination levels of shifted multiply-adds, no sequential scan.
 
 The multigrid smoother always uses the factored form (:func:`line_factor_2d` once
 per level, :func:`line_apply_2d` per application): exact factored PCR and exact
-in-line PCR (:func:`pcr_solve`) are the same algebra.
+in-line PCR (:func:`pcr_solve`) are the same algebra. A factorization is one
+stacked tensor (alpha_k, beta_k per level, then the inverse reduced diagonal),
+which on a CUDA device the line applies hand to the K3 kernel
+(:mod:`remo3d_tpu_torch.kernels.pcr_lines`) whole; :func:`pcr_apply` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..kernels import pcr_lines
+
+# On CUDA tensors, apply the factored line solves (line_apply_2d, and
+# lines3d.line_apply3) with the K3 kernel. False applies them with the plain
+# pcr_apply on the card too: chip_smoke.py's runs with K3 off.
+PCR_KERNEL = True
 
 _LINE_AXES_2D = {  # direction -> ((dl sel, d sel, du sel), axis)
     "r": (((1, 0), (1, 1), (1, 2)), -1),
@@ -73,22 +84,42 @@ def pcr_factor(dl, d, du, axis: int = 0, max_steps: int | None = None):
     The (alpha, beta) multipliers and the final reduced diagonal depend only on
     the matrix, not on the right-hand side, so the elimination algebra is hoisted
     out of every apply. Returns ``(steps, dinv)`` with steps a list of
-    (alpha, beta) per reduction level.
+    (alpha, beta) per reduction level: views into the one tensor of
+    :func:`pcr_factor_stacked`.
     """
+    return split_factors(pcr_factor_stacked(dl, d, du, axis, max_steps), 0)
+
+
+def pcr_factor_stacked(dl, d, du, axis: int = 0, max_steps: int | None = None,
+                       stack_dim: int = 0) -> torch.Tensor:
+    """:func:`pcr_factor`'s levels written into one contiguous tensor: dl's
+    shape with 2L+1 planes inserted at ``stack_dim``, alpha_0, beta_0, ...,
+    alpha_{L-1}, beta_{L-1}, then dinv; each plane is written where it is
+    computed, with the arithmetic of the per-level list."""
+    n_levels = _n_steps(d.shape[axis], max_steps)
+    shape = list(dl.shape)
+    shape.insert(stack_dim if stack_dim >= 0 else len(shape) + 1 + stack_dim, 2 * n_levels + 1)
+    F = torch.empty(shape, dtype=torch.result_type(dl, d), device=dl.device)
+    planes = F.unbind(stack_dim)
     a, c = dl, du
-    out = []
     s = 1
-    for _ in range(_n_steps(d.shape[axis], max_steps)):
-        alpha = -a / _safe(_shift(d, s, axis, 1.0))
-        beta = -c / _safe(_shift(d, -s, axis, 1.0))
+    for k in range(n_levels):
+        alpha = torch.div(-a, _safe(_shift(d, s, axis, 1.0)), out=planes[2 * k])
+        beta = torch.div(-c, _safe(_shift(d, -s, axis, 1.0)), out=planes[2 * k + 1])
         a_m, c_m = _shift(a, s, axis, 0.0), _shift(c, s, axis, 0.0)
         a_p, c_p = _shift(a, -s, axis, 0.0), _shift(c, -s, axis, 0.0)
         a = alpha * a_m
         c = beta * c_p
         d = d + alpha * c_m + beta * a_p
-        out.append((alpha, beta))
         s *= 2
-    return out, 1.0 / _safe(d)
+    torch.reciprocal(_safe(d), out=planes[-1])  # what 1.0 / d computes
+    return F
+
+
+def split_factors(F: torch.Tensor, stack_dim: int):
+    """(steps, dinv) of a :func:`pcr_factor_stacked` tensor, as views."""
+    planes = F.unbind(stack_dim)
+    return [(planes[2 * k], planes[2 * k + 1]) for k in range(len(planes) // 2)], planes[-1]
 
 
 def pcr_apply(steps, dinv, b, axis: int = 0):
@@ -116,25 +147,27 @@ def line_factor_2d(C, direction: str, max_steps=None):
 
     Computed once per assembled operator; the coefficients are per batch, not per
     solve, so the elimination algebra is amortized over the solve axis too.
+    Returns (axis, F): F the stacked factors, C's batch shape + (2L+1, NZ, NR).
     """
     (lo, mid, hi), axis = _LINE_AXES_2D[direction]
-    steps, dinv = pcr_factor(
+    F = pcr_factor_stacked(
         C[..., lo[0], lo[1]],
         C[..., mid[0], mid[1]],
         C[..., hi[0], hi[1]],
         axis=axis,
         max_steps=max_steps,
+        stack_dim=-3,
     )
-    return steps, dinv, axis
+    return axis, F
 
 
 def line_apply_2d(factors, b):
-    """Apply a :func:`line_factor_2d` factorization to b (extra solve axis OK)."""
-    steps, dinv, axis = factors
-    if b.ndim - dinv.ndim:
-        steps = [(al.unsqueeze(-3), be.unsqueeze(-3)) for al, be in steps]
-        dinv = dinv.unsqueeze(-3)
-    return pcr_apply(steps, dinv, b, axis=axis)
+    """Apply a :func:`line_factor_2d` factorization to b, (B, NZ, NR) or with
+    a solve axis (B, S, NZ, NR): on a CUDA device one K3 launch (with
+    :data:`PCR_KERNEL`), else :func:`pcr_apply`."""
+    axis, F = factors
+    apply_ = pcr_lines.pcr_apply_lines if PCR_KERNEL else pcr_lines.pcr_apply_lines_plain
+    return apply_(F, b, axis)
 
 
 def _line_solve(C, b, direction: str, max_steps=None):

@@ -10,7 +10,9 @@ the 3D CG preconditioner's line sweep handles direction by direction.
 
 from __future__ import annotations
 
-from .lines import pcr_apply, pcr_factor, pcr_solve
+from ..kernels import pcr_lines
+from . import lines
+from .lines import pcr_factor_stacked, pcr_solve
 from .stencil3d import entry_index
 
 _LINE_AXES = {  # direction -> (lower offset, upper offset, grid axis)
@@ -49,23 +51,25 @@ def line_factor3(C, direction: str, max_steps=None):
 
     Computed once per assembled operator (C's batch + grid shape) and applied
     to any number of right-hand sides via :func:`line_apply3`, the hot path of
-    the 3D CG preconditioner.
+    the 3D CG preconditioner. Returns (axis, F): F the stacked factors, C's
+    batch shape + (2L+1, NZ, NP, NR).
     """
     lo, hi, axis = _LINE_AXES[direction]
-    steps, dinv = pcr_factor(
+    F = pcr_factor_stacked(
         C[..., entry_index(*lo)],
         C[..., entry_index(0, 0, 0)],
         C[..., entry_index(*hi)],
         axis=axis,
         max_steps=max_steps,
+        stack_dim=-4,
     )
-    return steps, dinv, axis
+    return axis, F
 
 
 def line_apply3(factors, b):
-    """Apply a :func:`line_factor3` factorization to b (extra solve axis OK)."""
-    steps, dinv, axis = factors
-    if b.ndim - dinv.ndim:
-        steps = [(al.unsqueeze(-4), be.unsqueeze(-4)) for al, be in steps]
-        dinv = dinv.unsqueeze(-4)
-    return pcr_apply(steps, dinv, b, axis=axis)
+    """Apply a :func:`line_factor3` factorization to b, (B, NZ, NP, NR) or
+    with a solve axis (B, S, NZ, NP, NR): on a CUDA device one K3 launch (with
+    ``lines.PCR_KERNEL``), else :func:`~.lines.pcr_apply`."""
+    axis, F = factors
+    apply_ = pcr_lines.pcr_apply_lines if lines.PCR_KERNEL else pcr_lines.pcr_apply_lines_plain
+    return apply_(F, b, axis)

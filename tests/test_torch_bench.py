@@ -7,6 +7,7 @@ on the CPU without ``--cpu``. The bench on the card is ``chip_smoke.py``
 phase 29."""
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -15,6 +16,7 @@ import time
 import pytest
 
 from remo3d_tpu_torch import bench
+from remo3d_tpu_torch.kernels import pcr_lines
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--cpu", "--grid-2d", "65x17", "--grid-3d", "33x9x17", "--n-depths", "3"]
@@ -69,7 +71,7 @@ def test_tiny_cpu_bench_writes_no_device_metric(tiny_run):
         layers = line["layers"][name]
         assert layers["busy_share"] is None and layers["top_kernels"] is None
         assert layers["peak_memory_bytes"] is None and layers["profiled_wall_s"] is None
-        assert layers["launches"] == {"stencil2d_half": 0, "stencil3d_half": 0}
+        assert layers["launches"] == {"stencil2d_half": 0, "stencil3d_half": 0, "pcr_lines": 0}
         assert all(0 < k < 1000 for k in layers["cg_iterations"])
 
 
@@ -172,6 +174,22 @@ def test_traffic_multigrid_2d_hand_count():
                                       power_iters=1, kernel_levels=1) == hand
 
 
+def test_traffic_multigrid_2d_hand_count_with_k3():
+    """With K3 each PCR apply counts its least bytes in place of the eager
+    6200 / 1656 / 3000 / 792 of the hand count above: 2V, and per line the
+    coefficients read, alpha_k at i >= s and beta_k at i < n - s, then dinv.
+    On 5x5 (k = 3) 5 + 2 (4 + 3 + 1) = 21 values a line, 10 lines of 2 batches
+    (840 B): 1200 + 840 = 2040 (vectors) and 400 + 840 = 1240 (the power
+    iteration's one plane); on 3x3 (k = 2) 3 + 2 (2 + 1) = 9 values, 6 lines
+    (216 B): 432 + 216 = 648 and 144 + 216 = 360. 16 applies per level on
+    vectors (4 V-cycles, two line_rz each on level 0, two coarse steps on
+    level 1), 2 per level in the power iteration."""
+    extra = 16 * (6200 - 2040) + 16 * (1656 - 648) + 2 * (3000 - 1240) + 2 * (792 - 360)
+    kw = dict(n_levels=2, degree=1, coarse_degree=2, power_iters=1, kernel_levels=1)
+    assert bench.traffic_multigrid_2d(2, 3, 5, 5, 3, pcr_kernel=True, **kw) == (
+        bench.traffic_multigrid_2d(2, 3, 5, 5, 3, **kw) - extra)
+
+
 @pytest.mark.parametrize("schedule", ["bcr", "scan"])
 def test_traffic_direct_2d_hand_count(schedule):
     # G: "scan" 5 blocks of 5x5 per batch; "bcr" levels m = 5, 3, 2: (2 + 4)
@@ -207,6 +225,36 @@ def test_traffic_adi_3d_hand_count():
     factors = (8 * 2 + 2) * 180 * 2 + (8 * 3 + 2) * 180
     hand = _load_3d_hand() + factors + cg
     assert bench.traffic_adi_3d(1, 2, 3, 3, 5, 4) == hand
+
+
+def test_traffic_adi_3d_hand_count_with_k3():
+    """With K3 the sweep's line solves count 2V = 720 plus the coefficients
+    read per line: z and p lines of 3 nodes (k = 2) 3 + 2 (2 + 1) = 9 values,
+    15 lines: 1260; r lines of 5 nodes (k = 3) 21 values, 9 lines: 1476; in
+    place of 3060 and 4140; five sweeps (one before the loop, one per CG
+    iteration) of z, p, r, p, z."""
+    extra = 5 * (4 * (3060 - 1260) + (4140 - 1476))
+    assert bench.traffic_adi_3d(1, 2, 3, 3, 5, 4, pcr_kernel=True) == (
+        bench.traffic_adi_3d(1, 2, 3, 3, 5, 4) - extra)
+
+
+def test_pcr_kernel_bytes_at_the_main_shapes():
+    """K3's least bytes at the main paths' finest shapes (PERF.md's kernel
+    table), n (2k + 1) - 2 (2^k - 1) coefficients a line: 2D z lines
+    (74,5,761x161) 10 levels 1026.7 MB, r lines 8 levels 864.3 MB; 3D
+    (8,5,193x17x49) z 8 levels 125.3 MB, p 5 levels 89.3 MB, r 6 levels 105.1
+    MB; the same as the wrapper's least_work, which chip_smoke.py's bounds
+    use."""
+    p2, p3 = 74 * 761 * 161 * 4, 8 * 193 * 17 * 49 * 4
+    g2, g3 = (761, 161), (193, 17, 49)
+    for k, n, plane, grid, axis, mb in (
+            (10, 761, p2, g2, -2, 1026.7), (8, 161, p2, g2, -1, 864.3), (8, 193, p3, g3, -3, 125.3),
+            (5, 17, p3, g3, -2, 89.3), (6, 49, p3, g3, -1, 105.1)):
+        got = bench._pcr_apply(k, 5 * plane, plane, n, kernel=True)
+        assert got / 1e6 == pytest.approx(mb, abs=0.05)
+        batches = plane // (4 * math.prod(grid))
+        assert got == pcr_lines.least_work(batches, 5, grid, axis, k, 4)[0]
+        assert pcr_lines.coefficient_values(n, k) == n * (2 * k + 1) - 2 * (2**k - 1)
 
 
 @pytest.mark.parametrize("schedule", ["bcr", "scan"])

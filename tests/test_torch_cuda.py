@@ -22,10 +22,10 @@ from chip_smoke import (
     run_child,
 )
 from remo3d_tpu_torch import Model
-from remo3d_tpu_torch.kernels import stencil2d, stencil3d
+from remo3d_tpu_torch.kernels import pcr_lines, stencil2d, stencil3d
 from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
 from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
-from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d, cg
+from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d, cg, lines
 from remo3d_tpu_torch.ops.stencil import stencil_apply
 from remo3d_tpu_torch.ops.stencil3d import pole_project, stencil3d_apply
 
@@ -407,22 +407,119 @@ def test_graphed_cg_matches_op_by_op(cuda_device, dim, route):
     for graphs in (True, False):
         cg.GRAPHS = graphs
         try:
-            before = kernel.LAUNCHES
+            before = kernel.LAUNCHES, pcr_lines.LAUNCHES
             m = Model.compute_synthetic_logs(
                 tools, depths, form, bore, borehole_geometry_type="radius", device="cuda",
                 batch_size=1, verbose=False, executor_overrides={key: route, **overrides}, **kw)
-            runs[graphs] = (m, kernel.LAUNCHES - before)
+            runs[graphs] = (m, (kernel.LAUNCHES - before[0], pcr_lines.LAUNCHES - before[1]))
         finally:
             cg.GRAPHS = True
     (mg, ng), (me, ne) = runs[True], runs[False]
     chunks = mg.last_report["chunks"]
-    assert len(chunks) >= 2 and ng == ne > 0
+    assert len(chunks) >= 2 and ng == ne and ng[0] > 0
+    assert (ng[1] > 0) == (route != "direct")  # K3 runs inside the graph of the line smoothers
     assert [c["iterations"] for c in chunks] == [c["iterations"] for c in me.last_report["chunks"]]
     assert all(c["replays"] == c["iterations"] - 1 for c in chunks)
     assert all(c["capture_seconds"] > 0 for c in chunks if c["replays"])
     assert all(c["replays"] == 0 for c in me.last_report["chunks"])
     for t in tools:
         np.testing.assert_array_equal(mg.logs[t], me.logs[t])
+
+
+def _pcr_inputs(rng, shape, axis, solve_axis, dtype, device):
+    """Stacked factors of random diagonally dominant lines (an M-matrix, as the
+    FEM operators' lines are) on the grid shape[2:], and b; float64 made, then
+    cast."""
+    B, S, grid = shape[0], shape[1], shape[2:]
+    dl = -rng.uniform(0.1, 1.0, (B, *grid))
+    du = -rng.uniform(0.1, 1.0, (B, *grid))
+    d = -(dl + du) + rng.uniform(0.05, 0.5, (B, *grid))
+    F = lines.pcr_factor_stacked(
+        *(torch.as_tensor(a, device=device).to(dtype) for a in (dl, d, du)), axis=axis,
+        stack_dim=1)
+    b = rng.standard_normal((B, S, *grid) if solve_axis else (B, *grid))
+    return F, torch.as_tensor(b, device=device).to(dtype)
+
+
+# (shape, axis): 2D r and z lines, 3D z, p and r lines, lines of 9 to 49 nodes.
+PCR_CASES = [((2, 3, 33, 17), -1), ((2, 3, 33, 17), -2), ((2, 3, 17, 9, 49), -3),
+             ((2, 3, 17, 9, 49), -2), ((2, 3, 17, 9, 49), -1), ((3, 5, 97, 33), -2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solve_axis", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,axis", PCR_CASES)
+def test_pcr_kernel_matches_plain(cuda_device, shape, axis, dtype, tol, solve_axis):
+    """K3 against its plain version on the card, relative to max|x|; one
+    launch per call, b left as it was."""
+    F, b = _pcr_inputs(np.random.default_rng(6), shape, axis, solve_axis, dtype, cuda_device)
+    b_before = b.clone()
+    before = pcr_lines.LAUNCHES
+    out = pcr_lines.pcr_apply_lines(F, b, axis)
+    torch.cuda.synchronize()
+    assert pcr_lines.LAUNCHES == before + 1
+    ref = pcr_lines.pcr_apply_lines_plain(F, b, axis)
+    assert out.shape == b.shape and out.dtype == dtype and torch.equal(b, b_before)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_pcr_kernel_refuses_a_line_beyond_shared_memory(cuda_device):
+    """The longest float64 line whose 5 solves fit in a block's shared memory,
+    twice, launches and matches the plain version; one node more is refused
+    before any launch (no fallback)."""
+    n_max = pcr_lines.MAX_SMEM_BYTES // (2 * 8 * 5)
+    F, b = _pcr_inputs(np.random.default_rng(8), (1, 5, n_max, 3), -2, True, torch.float64,
+                       cuda_device)
+    assert pcr_lines.kernel_info(1, 5, (n_max, 3), -2, torch.float64)["blocks_per_sm"] >= 1
+    out = pcr_lines.pcr_apply_lines(F, b, -2)
+    ref = pcr_lines.pcr_apply_lines_plain(F, b, -2)
+    assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+    F, b = _pcr_inputs(np.random.default_rng(8), (1, 5, n_max + 1, 1), -2, True, torch.float64,
+                       cuda_device)
+    before = pcr_lines.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        pcr_lines.pcr_apply_lines(F, b, -2)
+    assert pcr_lines.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_small_graphed_logs_with_k3_on_and_off(cuda_device, dim):
+    """A small float32 log (2D 97x33 multigrid, 3D 49x9x17 ADI; the CG loop
+    graphed) with K3 and with ``lines.PCR_KERNEL`` off: readouts within the
+    logs' gates (2e-4 in 2D, 1e-3 in 3D), CG iterations per chunk within 1,
+    K3 launched in every chunk with it on and never with it off."""
+    tools = ["A2.0M0.5N", "B5.7A0.4M"]
+    if dim == 2:
+        depths, rel = np.array([-0.4, 0.0, 0.6]), 2e-4
+        kw = dict(grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2),
+                  executor_overrides={"preconditioner": "multigrid", "chunk_size": 2})
+    else:
+        depths, rel = np.array([11.5, 12.5, 13.5]), 1e-3
+        kw = dict(dip=30, grid_spec3d=GridSpec3D(nz=49, np_=9, nr=17, n_wall_cells=3,
+                                                  n_blend_cells=2),
+                  executor_overrides={"precond3d": "adi", "chunk_size_3d": 2})
+    runs = {}
+    for on in (True, False):
+        lines.PCR_KERNEL = on
+        try:
+            before = pcr_lines.LAUNCHES
+            m = Model.compute_synthetic_logs(
+                tools, depths, BM3_FORMATION, BM3_BOREHOLE, borehole_geometry_type="radius",
+                device="cuda", batch_size=1, verbose=False, **kw)
+            runs[on] = (m, pcr_lines.LAUNCHES - before)
+        finally:
+            lines.PCR_KERNEL = True
+    (m_on, n_on), (m_off, n_off) = runs[True], runs[False]
+    it_on = [c["iterations"] for c in m_on.last_report["chunks"]]
+    it_off = [c["iterations"] for c in m_off.last_report["chunks"]]
+    assert n_off == 0 and n_on >= sum(it_on) and len(it_on) >= 2
+    assert all(abs(a - b) <= 1 for a, b in zip(it_on, it_off))
+    for t in tools:
+        on, off = m_on.logs[t][:, 1], m_off.logs[t][:, 1]
+        assert np.isfinite(on).all() and np.abs(on / off - 1).max() <= rel
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from remo3d_tpu_torch.meshing.grid3d import GridSpec3D, build_grid3d
 from remo3d_tpu_torch.ops import assembly3d as tasm
 from remo3d_tpu_torch.ops import lines3d as tlines
 from remo3d_tpu_torch.ops import stencil3d as tst
+from remo3d_tpu_torch.ops.lines import split_factors
 from remo3d_tpu_torch.parallel.runtime import _apply3 as t_apply3
 from remo3d_tpu_torch.parallel.runtime import _pcg3 as t_pcg3
 from remo3d_tpu_torch.parallel.runtime import _solve_chunk_3d as t_solve_chunk_3d
@@ -156,11 +157,12 @@ def test_line_factor_and_apply_match_jax(stencils, direction):
         ref = jlines.line_apply3(f_j, _jax(b))
         ref_inline = getattr(jlines, f"line_solve_{direction}3")(C_j, _jax(b))
     f_t = tlines.line_factor3(C_t, direction)
-    assert f_t[2] == f_j[2] and len(f_t[0]) == len(f_j[0])
-    for (al_t, be_t), (al_j, be_j) in zip(f_t[0], f_j[0]):
+    steps_t, dinv_t = split_factors(f_t[1], -4)
+    assert f_t[0] == f_j[2] and len(steps_t) == len(f_j[0])
+    for (al_t, be_t), (al_j, be_j) in zip(steps_t, f_j[0]):
         close(al_t, al_j)
         close(be_t, be_j)
-    close(f_t[1], f_j[1])
+    close(dinv_t, f_j[1])
     out = tlines.line_apply3(f_t, torch.as_tensor(b))
     close(out, ref)
     close(getattr(tlines, f"line_solve_{direction}3")(C_t, torch.as_tensor(b)), ref_inline)
