@@ -113,8 +113,9 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     version, float32 and float64, at every line shape of phases 4 and 8
     (each multigrid level of the 2D log in r and z, with and without the
     solve axis; the 3D chunk's z, p and r lines), each timed against its
-    bound and the plain version, with registers, shared memory, lines per
-    tile and resident blocks per SM;
+    bound and the plain version, with registers, shared memory, resident
+    blocks per SM and the tile plan (lines per tile, cluster, segment,
+    coefficient stages);
 31. phase 4's 2D log with K3 off, on, on with the CG loop op by op, and off
     again (``ops.lines.PCR_KERNEL``): K3 on against off within LOG_REL, CG
     iterations per chunk within 1, K3 launched in every CG iteration with it
@@ -151,12 +152,16 @@ op, graph, graph, op by op; the logs of several chunks also graphed with
 capture seconds and replays, launches, peak allocated and reserved memory,
 and the device busy share and top five activities of a profiled run of each
 turn (:func:`graph_turns`).
-``python3 chip_smoke.py --tune`` instead times both kernels at their main
-shapes for every tile height, to choose the kernels' automatic one.
+``python3 chip_smoke.py --tune`` instead times K1 and K2 at their main
+shapes for every tile height, to choose the kernels' automatic one, and K3
+at every line shape of both logs, float32 and float64, for the tile plans of
+least estimated cost and others (how its cost model was fitted).
 ``python3 chip_smoke.py --probe`` instead times K2 beside its probe builds
 (``REMO3D_K2_PROBE`` in ``csrc/stencil3d.cu``: without the mirrored coefficient
-loads, without any coefficient load, without the sum over shared memory), to
-say what its time is spent on. Every mode runs in a child under its limit.
+loads, without any coefficient load, without the sum over shared memory) and
+K3 beside its own (``REMO3D_K3_PROBE`` in ``csrc/pcr_lines.cu``: without any
+coefficient loaded, without the barrier between levels), to say what their
+time is spent on. Every mode runs in a child under its limit.
 """
 
 from __future__ import annotations
@@ -311,6 +316,8 @@ BENCH_REPEATS, BENCH_LIMIT, BENCH_WALL_RATIO = 2, 150, 2.0
 # phase 8's 3D chunk.
 K3_2D_BS, K3_2D_GRID = (74, 5), (761, 161)
 K3_3D_SHAPE = (8, 5, 193, 17, 49)
+# The five line shapes on which the main paths spend K3's time (float32).
+MAIN_K3_SHAPES = ("2D level 0 z", "2D level 0 r", "3D z", "3D p", "3D r")
 MODES = {"--screen": "12-15", "--diff": "16-19", "--k3": "30-32", "--profile3d": "profile3d",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
          "--tune": "tune", "--probe": "probe", "--graphs": "graphs"}
@@ -681,8 +688,9 @@ def report_kernel_info(torch):
 
 
 def tune(torch, card):
-    """Both kernels at their main shapes, float32, for every tile height: 15
-    interleaved rounds over the heights, median per height."""
+    """K1 and K2 at their main shapes, float32, for every tile height: 15
+    interleaved rounds over the heights, median per height; then K3's plans
+    (:func:`tune_k3`)."""
     from remo3d_tpu_torch.kernels import stencil2d, stencil3d
 
     rng = np.random.default_rng(2024)
@@ -718,6 +726,7 @@ def tune(torch, card):
             )
         del C_half, u
         torch.cuda.empty_cache()
+    tune_k3(torch, card)
 
 
 def reset_counts():
@@ -1638,6 +1647,110 @@ def probe(torch, card):
                 times[key].append(t)
     for key in libs:
         log(f"probe K2 {shape} float32 on {card}: {key}: {float(np.median(times[key])):.4f} ms")
+    probe_k3(torch, card)
+
+
+def tune_k3(torch, card):
+    """K3 at every line shape of phases 4 and 8 (:func:`k3_shapes`), float32
+    and float64, for the 12 candidate plans of least estimated cost
+    (``pcr_lines.candidate_plans``, ``estimated_cost``; the first is
+    ``tile_plan``'s), the 4 least of those of 1024 blocks or more, the least
+    of each cluster size and occupancy, and the strided plans among the first
+    12 in a cluster of one block: each checked against the plain version,
+    then 5 interleaved rounds, median per plan, beside its estimate. How
+    tile_plan's cost model was fitted."""
+    from remo3d_tpu_torch.kernels import build, pcr_lines
+    from remo3d_tpu_torch.ops.lines import pcr_factor_stacked
+
+    lib = build.load_library()
+    rng = np.random.default_rng(2024)
+    for label, B, S, grid, axis in k3_shapes():
+        shape = (B, *grid)
+        dl, du = -rng.uniform(0.1, 1.0, shape), -rng.uniform(0.1, 1.0, shape)
+        d = -(dl + du) + rng.uniform(0.05, 0.5, shape)
+        b64 = rng.standard_normal(shape if S is None else (B, S, *grid))
+        for name, dt in (("float32", torch.float32), ("float64", torch.float64)):
+            F = pcr_factor_stacked(*(torch.as_tensor(a, device="cuda").to(dt)
+                                     for a in (dl, d, du)), axis=axis, stack_dim=1)
+            b = torch.as_tensor(b64, device="cuda").to(dt)
+            x = torch.empty_like(b)
+            ref = pcr_lines.pcr_apply_lines_plain(F, b, axis)
+            outer, n, inner = pcr_lines.line_view(grid, axis)
+            L, size = (F.shape[1] - 1) // 2, b.element_size()
+
+            def blocks(p):
+                return B * p.tiles_o * p.tiles_i * p.cluster
+
+            ranked = sorted(pcr_lines.candidate_plans(S or 1, outer, n, inner, L, size),
+                            key=lambda p: (pcr_lines.estimated_cost(B, S or 1, size, p), p.smem))
+            plans = ranked[:12]
+            plans += [p for p in ranked if blocks(p) >= 1024 and p not in plans][:4]
+            kinds = {}
+            for p in ranked:
+                kinds.setdefault((p.cluster, pcr_lines.occupancy(p.smem)), p)
+            plans += [p for p in kinds.values() if p not in plans]
+            one = [pcr_lines.make_plan(S or 1, outer, n, inner, L, size, p.tiles_o, p.tiles_i,
+                                       1, p.stages) for p in ranked[:12] if p.cluster > 1]
+            plans += [p for p in dict.fromkeys(one)
+                      if p.smem <= pcr_lines.MAX_SMEM_BYTES and p not in plans]
+            times = {p: [] for p in plans}
+            for p in plans:
+                pcr_lines.launch(lib, F, b, x, axis, p)
+                torch.cuda.synchronize()
+                rel = float((x - ref).abs().max()) / float(ref.abs().max())
+                if not rel <= TOL_REL[name]:
+                    raise AssertionError(f"K3 {label} {name} plan {p}: rel err {rel:.3e}")
+            for rnd in range(6):  # round 0 warms up
+                for p in plans:
+                    t = time_ms(torch, lambda: pcr_lines.launch(lib, F, b, x, axis, p))
+                    if rnd:
+                        times[p].append(t)
+            for i, p in enumerate(plans):
+                log(f"tune K3 {label} {tuple(b.shape)} {name} on {card}: {tuple(p)} "
+                    f"{'(tile_plan) ' if i == 0 else ''}{blocks(p)} blocks, "
+                    f"{pcr_lines.occupancy(p.smem)} per SM, estimate "
+                    f"{pcr_lines.estimated_cost(B, S or 1, size, p):.0f}: "
+                    f"{float(np.median(times[p])):.4f} ms")
+            del F, b, x, ref
+        torch.cuda.empty_cache()
+
+
+def probe_k3(torch, card):
+    """K3 at the five main-path line shapes (2D finest z and r, 3D z, p and
+    r), float32, beside its two probe builds (``REMO3D_K3_PROBE`` in
+    ``csrc/pcr_lines.cu``): without any coefficient loaded (constants in
+    their place), and without the barrier between levels. 20 interleaved
+    rounds, median per build; wrong results on purpose, only the times mean
+    something."""
+    from remo3d_tpu_torch.kernels import build, pcr_lines
+    from remo3d_tpu_torch.ops.lines import pcr_factor_stacked
+
+    builds = {
+        "the kernel": (),
+        "probe 1, no coefficient loaded": ("REMO3D_K3_PROBE=1",),
+        "probe 2, no barrier between levels": ("REMO3D_K3_PROBE=2",),
+    }
+    libs = {key: build.build_library(defines) for key, defines in builds.items()}
+    rng = np.random.default_rng(2024)
+    shapes = [s for s in k3_shapes() if s[2] is not None and s[0] in MAIN_K3_SHAPES]
+    for label, B, S, grid, axis in shapes:
+        shape = (B, *grid)
+        dl, du = -rng.uniform(0.1, 1.0, shape), -rng.uniform(0.1, 1.0, shape)
+        d = -(dl + du) + rng.uniform(0.05, 0.5, shape)
+        F = pcr_factor_stacked(*(torch.as_tensor(a, device="cuda").float() for a in (dl, d, du)),
+                               axis=axis, stack_dim=1)
+        b = torch.as_tensor(rng.standard_normal((B, S, *grid)), device="cuda").float()
+        x = torch.empty_like(b)
+        times = {key: [] for key in libs}
+        for rnd in range(21):  # round 0 warms up
+            for key, lib in libs.items():
+                t = time_ms(torch, lambda: pcr_lines.launch(lib, F, b, x, axis))
+                if rnd:
+                    times[key].append(t)
+        for key in libs:
+            log(f"probe K3 {label} {tuple(b.shape)} float32 on {card}: {key}: "
+                f"{float(np.median(times[key])):.4f} ms")
+        del F, b, x
 
 
 def device_activity(torch, events, skip=()):
@@ -2457,7 +2570,7 @@ def check_k3(torch, card):
             n_bytes, flops = map(float, pcr_lines.least_work(B, solves, grid, axis, L,
                                                              F.element_size()))
             b_ms, b_by = bound_ms(n_bytes, flops, name)
-            info = pcr_lines.kernel_info(B, solves, grid, axis, dt)
+            info = pcr_lines.kernel_info(B, solves, grid, axis, L, dt)
             row = {"shape": label, "b": list(b.shape), "axis": axis, "levels": L, "dtype": name,
                    "max_abs_err": err, "rel_err": rel, "ms": k, "plain_ms": p, "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": None, **info}
@@ -2468,8 +2581,10 @@ def check_k3(torch, card):
                 f"({n_bytes / 1e6:.1f} MB): kernel at {b_ms / k:.1%} of it, "
                 f"{n_bytes / (k * 1e-3) / 1e9:.0f} GB/s; {info['registers']} registers, "
                 f"{info['spill_bytes']} B spilled, {info['smem_bytes']} B shared memory per "
-                f"block, {info['tile_rows']} lines per tile, {info['blocks_per_sm']} blocks of "
-                f"256 threads per SM ({card})")
+                f"block, {info['blocks_per_sm']} blocks of 256 threads per SM; plan: "
+                f"{info['TO']} x {info['TI']} lines per tile ({info['tiles_o']} x "
+                f"{info['tiles_i']} tiles), cluster {info['cluster']} ({info['seg']} nodes of a "
+                f"line per block), {info['stages']} coefficient stages ({card})")
             if not rel <= TOL_REL[name]:
                 faults.append(f"{label} {name}: rel err {rel:.3e} > {TOL_REL[name]}")
             if info["blocks_per_sm"] < 1:
@@ -2725,7 +2840,8 @@ def main() -> int:
     k3.update(results["29"]["pcr_lines"])
     k3["shapes"] = [{key: r[key] for key in ("shape", "b", "axis", "dtype", "ms", "plain_ms",
                                              "bound_ms", "rel_err", "registers", "smem_bytes",
-                                             "tile_rows", "blocks_per_sm")}
+                                             "tile_rows", "blocks_per_sm", "TO", "TI",
+                                             "cluster", "seg", "stages")}
                     for r in k3_run["shapes"]]
 
     log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
@@ -2752,6 +2868,7 @@ def main() -> int:
             "replaces": "remo3d_tpu/ops/pallas_lines2d.py:116 and "
                         "remo3d_tpu/ops/pallas_lines3d.py:74 at 9fd23cb^ (removed; today "
                         "remo3d_tpu/ops/lines.py:111)",
+            "redesigned": "PR 14",
             **k3,
         },
     ]}))

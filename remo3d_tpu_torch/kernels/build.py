@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 # (ctypes would otherwise pass a 64-bit address as a 32-bit int), sizes c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INFO = ctypes.POINTER(ctypes.c_int * 6)
+_PLAN = ctypes.POINTER(ctypes.c_int)  # K3's tile plan (kernels/pcr_lines.py PLAN_FIELDS)
 ENTRY_POINTS = {
     # (C, u, y, B, S, NZ, NR, tile_rows, stream)
     "stencil2d_half_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -40,17 +41,18 @@ ENTRY_POINTS = {
     # (C, u, y, B, S, NZ, NP, NR, pole, tile_rows, stream)
     "stencil3d_half_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "stencil3d_half_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # (F, b, x, B, S, outer, n, inner, L, stream): K3 on lines (outer, n, inner)
-    "pcr_lines_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "pcr_lines_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # (F, b, x, B, S, outer, n, inner, L, plan, stream): K3 on lines (outer,
+    # n, inner) with the wrapper's tile plan
+    "pcr_lines_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _PLAN, _P],
+    "pcr_lines_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _PLAN, _P],
     # (S, NR, tile_rows, out) / (S, NP, NR, tile_rows, out) / (B, S, outer,
-    # n, inner, out): what a launch would use, see kernel_info
+    # n, inner, L, plan, out): what a launch would use, see kernel_info
     "stencil2d_half_info_f32": [_I, _I, _I, _INFO],
     "stencil2d_half_info_f64": [_I, _I, _I, _INFO],
     "stencil3d_half_info_f32": [_I, _I, _I, _I, _INFO],
     "stencil3d_half_info_f64": [_I, _I, _I, _I, _INFO],
-    "pcr_lines_info_f32": [_I, _I, _I, _I, _I, _INFO],
-    "pcr_lines_info_f64": [_I, _I, _I, _I, _I, _INFO],
+    "pcr_lines_info_f32": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
+    "pcr_lines_info_f64": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
 }
 INFO_FIELDS = ("registers", "spill_bytes", "smem_bytes", "tile_rows", "solves_per_group",
                "blocks_per_sm")

@@ -22,13 +22,19 @@ i >= s and beta_k only at i < n - s, then dinv everywhere,
 near the compute rate. The plain version moves
 the solution array about ten times per level (a copy, two windowed
 multiply-adds). The kernel (``csrc/pcr_lines.cu``) gives a block a tile of
-whole lines of one batch, holds all S solves of the tile in shared memory
-through every level, reads each coefficient once per tile and level and
-applies it to the S solves, and writes x once: the per-level intermediate
-never reaches device memory. A line of all S solves must fit in a block's
-shared memory, twice; a longer one is refused. The coefficients keep the solve's dtype (the
-Pallas kernels stored them in bfloat16), and every product and sum is rounded
-on its own in the plain version's order.
+lines of one batch, holds all S solves of the tile in shared memory through
+every level, streams each level's coefficients into shared memory with
+``cp.async`` ahead of the level, and writes x once: the per-level
+intermediate never reaches device memory. Strided lines take rows of at
+least 32 bytes along inner and are split over the blocks of a thread-block
+cluster, every cluster-th node in each block: the first log2(cluster) levels
+read their neighbours from the other blocks' shared memory (distributed
+shared memory), the later ones find them in their own. :func:`tile_plan`
+decides the tile here, where the CPU tests see it; the kernel only checks
+it. A launch for which no plan fits a block's shared memory is refused. The
+coefficients keep the solve's dtype (the Pallas kernels stored them in
+bfloat16), and every product and sum is rounded on its own in the plain
+version's order.
 
 :func:`pcr_apply_lines` sends tensors that lie on the CPU to the plain
 version; any other tensor launches the kernel or raises. There is no fallback
@@ -39,7 +45,10 @@ multigrid smoother and the 3D ADI sweep) run inside ``ops.cg.pcg``'s
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import sys
+from typing import NamedTuple
 
 import torch
 
@@ -56,6 +65,55 @@ COUNTED.append(sys.modules[__name__])
 
 # A block's shared memory on sm_90 (slab::kMaxSmemBytes in csrc/slab_stage.cuh).
 MAX_SMEM_BYTES = 232448
+# The automatic tile (tile_plan) is the candidate of least estimated time on
+# an H100: SM_COUNT SMs, each holding at most BLOCKS_PER_SM blocks (the
+# kernel's __launch_bounds__) and SM_SMEM_BYTES of shared memory (1 KB of it
+# reserved per block). A block costs its nodes, each weighted by its bytes
+# (S solves and COEF_WEIGHT solves' worth of coefficients, in float32
+# values), CLUSTER_COST more for each level that reads another block's
+# shared memory and ROWS_COST more where the tile is rows, not whole runs of
+# memory, and BLOCK_COST more for its start (launch, the first loads, the
+# last stores); the blocks resident on an SM share it, at the EFFICIENCY of
+# so many blocks (fewer hide less latency), and a launch takes whole waves.
+# Strided lines take rows of ROW_BYTES or more along inner and are split
+# over a cluster of 2 to MAX_CLUSTER blocks (the portable size). The
+# constants are fitted to chip_smoke.py --tune's sweep of every line shape
+# of both logs, float32 and float64.
+SM_COUNT = 132
+BLOCKS_PER_SM = 3
+SM_SMEM_BYTES = 233472
+BLOCK_COST = 6000
+COEF_WEIGHT = 5
+CLUSTER_COST = 0.1
+ROWS_COST = 0.8
+EFFICIENCY = {1: 0.73, 2: 0.90, 3: 1.0}
+ROW_BYTES = 32
+MAX_CLUSTER = 8
+# Lines along inner up to which a tile takes all of inner (one run of memory).
+RUN_INNER = 64
+
+
+class Plan(NamedTuple):
+    """A launch's tile (``csrc/pcr_lines.cu`` struct Plan, in this order).
+
+    A tile holds ``TO`` x ``TI`` lines (outer x inner; ``tiles_o`` and
+    ``tiles_i`` tiles split each evenly, so a tile is at most that wide);
+    ``cluster`` blocks (a power of two) share a tile, block c holding nodes
+    c, c + cluster, c + 2 cluster, ... of each of its lines, at most ``seg``;
+    ``stages`` coefficient slots (more than the levels run: all of them
+    staged at once); ``smem`` bytes of shared memory per block."""
+
+    TO: int
+    TI: int
+    tiles_o: int
+    tiles_i: int
+    cluster: int
+    seg: int
+    stages: int
+    smem: int
+
+
+PLAN_FIELDS = Plan._fields
 
 _ENTRY = {torch.float32: "pcr_lines_f32", torch.float64: "pcr_lines_f64"}
 _INFO_ENTRY = {torch.float32: "pcr_lines_info_f32", torch.float64: "pcr_lines_info_f64"}
@@ -89,6 +147,98 @@ def least_work(B: int, S: int, grid, axis: int, L: int, itemsize: int) -> tuple[
     outer, n, inner = line_view(tuple(grid), axis)
     lines, coef = B * outer * inner, coefficient_values(n, L)
     return itemsize * lines * (2 * S * n + coef), S * lines * (2 * coef - n)
+
+
+def levels_run(n: int, L: int) -> int:
+    """Levels of an L-level factor that change a line of n nodes: s = 2^k < n."""
+    return sum(1 for k in range(L) if 2**k < n)
+
+
+def smem_bytes(S: int, n: int, L: int, itemsize: int, TO: int, TI: int, seg: int,
+               stages: int) -> int:
+    """Shared memory of a block (``csrc/pcr_lines.cu`` plan_smem): x of the S
+    solves twice, TO x seg x TI nodes each rounded up to 16 bytes, and the
+    coefficient slots, two planes per stage (2 Lr + 1 planes, Lr the levels
+    run, when every level is staged at once), each with 16 bytes of room for
+    its placement."""
+    V = 16 // itemsize
+    nodes = TO * seg * TI
+    x_cap = -(-nodes // V) * V
+    c_cap = (nodes + 2 * V - 2) // V * V
+    Lr = levels_run(n, L)
+    planes = 2 * Lr + 1 if stages > Lr else 2 * stages
+    return itemsize * (2 * S * x_cap + planes * c_cap)
+
+
+def make_plan(S: int, outer: int, n: int, inner: int, L: int, itemsize: int, tiles_o: int,
+              tiles_i: int, cluster: int, stages: int) -> Plan:
+    """The plan of ``tiles_o`` x ``tiles_i`` tiles (even splits), each line
+    split over ``cluster`` blocks, ``stages`` coefficient slots."""
+    TO, TI, seg = -(-outer // tiles_o), -(-inner // tiles_i), -(-n // cluster)
+    return Plan(TO, TI, tiles_o, tiles_i, cluster, seg, stages,
+                smem_bytes(S, n, L, itemsize, TO, TI, seg, stages))
+
+
+def occupancy(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory resident on one SM."""
+    return max(1, min(BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + 1024)))
+
+
+def estimated_cost(B: int, S: int, itemsize: int, plan: Plan) -> float:
+    """The cost model of :func:`tile_plan` for B batches of S solves of
+    ``itemsize`` bytes, in float32 node-solve times of one SM: the waves of
+    the launch, each as long as its blocks' work (weighted nodes, CLUSTER_COST
+    per remote level, ROWS_COST for rows, BLOCK_COST) times the blocks
+    sharing an SM, over their EFFICIENCY."""
+    occ = occupancy(plan.smem)
+    blocks = B * plan.tiles_o * plan.tiles_i * plan.cluster
+    rows = plan.cluster > 1 or plan.tiles_i > 1
+    per_node = (S + COEF_WEIGHT) * itemsize / 4 * (
+        1 + CLUSTER_COST * (plan.cluster.bit_length() - 1) + (ROWS_COST if rows else 0))
+    work = occ * (plan.TO * plan.TI * plan.seg * per_node + BLOCK_COST) / EFFICIENCY[occ]
+    return -(-blocks // (SM_COUNT * occ)) * work
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(B: int, S: int, outer: int, n: int, inner: int, L: int,
+              itemsize: int) -> Plan | None:
+    """The tile of a launch of B batches of S solves on lines (outer, n,
+    inner) with L levels: of :func:`candidate_plans` the one of least
+    :func:`estimated_cost`; None when none fits a block's shared memory.
+    Cached: a launch's host time is the launch, not the search (hundreds of
+    candidates on the 3D z lines)."""
+    plans = candidate_plans(S, outer, n, inner, L, itemsize)
+    return min(plans, key=lambda p: (estimated_cost(B, S, itemsize, p), p.smem), default=None)
+
+
+def candidate_plans(S: int, outer: int, n: int, inner: int, L: int, itemsize: int) -> list:
+    """The plans :func:`tile_plan` chooses from, each fitting a block's
+    shared memory. Where inner is at most RUN_INNER (r and p lines), tiles of
+    whole lines with all of inner (one run of memory per plane), 1 to
+    ``outer`` lines along outer, coefficients in a ring of two stages or all
+    at once; where inner is more than 1 (z and p lines), or no whole line
+    fits a block, strided rows of ROW_BYTES or more along inner, each line
+    split over a cluster of 2, 4 or 8 blocks (at most n), a ring of two
+    stages (all at once with one level)."""
+    Lr = levels_run(n, L)
+    stages = sorted({min(2, Lr + 1), Lr + 1})
+    plans = []
+    if inner <= RUN_INNER:
+        for st in stages:
+            for TO in range(1, outer + 1):
+                p = make_plan(S, outer, n, inner, L, itemsize, -(-outer // TO), 1, 1, st)
+                if p.smem > MAX_SMEM_BYTES:
+                    break
+                plans.append(p)
+    if inner > 1 or not plans:
+        row = max(1, ROW_BYTES // itemsize)
+        clusters = [c for c in (2, 4, 8) if c <= n] or [1]
+        for tiles_i in range(1, max(1, inner // row) + 1):
+            for c in clusters:
+                p = make_plan(S, outer, n, inner, L, itemsize, outer, tiles_i, c, stages[0])
+                if p.smem <= MAX_SMEM_BYTES:
+                    plans.append(p)
+    return plans
 
 
 def _shapes(F: torch.Tensor, b: torch.Tensor, axis: int):
@@ -126,22 +276,50 @@ def _check(F: torch.Tensor, b: torch.Tensor, axis: int):
         raise ValueError(f"dtypes {F.dtype}/{b.dtype}: need float32 or float64, equal")
     if not (F.is_contiguous() and b.is_contiguous()):
         raise ValueError("F and b must be contiguous")
-    if max(B, S, *line_view(grid, axis)) >= 2**31:
+    outer, n, inner = line_view(grid, axis)
+    if max(B, S, outer * n * inner) >= 2**31:
         raise ValueError(f"F {tuple(F.shape)} exceeds the kernel's int sizes")
-    n = line_view(grid, axis)[1]
-    if 2 * b.element_size() * S * n > MAX_SMEM_BYTES:
-        raise ValueError(f"a line of {n} nodes and {S} solves needs "
-                         f"{2 * b.element_size() * S * n} B of shared memory, more than a "
-                         f"block's {MAX_SMEM_BYTES}")
-    return B, S, grid
+    plan = tile_plan(B, S, outer, n, inner, (F.shape[1] - 1) // 2, b.element_size())
+    if plan is None:
+        raise ValueError(f"no tile of a line of {n} nodes and {S} solves fits a block's "
+                         f"{MAX_SMEM_BYTES} B of shared memory, even split over a cluster "
+                         f"of {MAX_CLUSTER}")
+    return plan
 
 
-def kernel_info(B: int, S: int, grid, axis: int, dtype: torch.dtype = torch.float32) -> dict:
+def _plan_arg(plan: Plan):
+    return (ctypes.c_int * len(PLAN_FIELDS))(*plan)
+
+
+def kernel_info(B: int, S: int, grid, axis: int, L: int,
+                dtype: torch.dtype = torch.float32) -> dict:
     """Registers, spill bytes, shared memory per block, lines per tile (in
     ``tile_rows``), solves (``solves_per_group``, always S) and resident
-    blocks per SM of a launch
-    of B batches of S solves on ``grid`` with lines along ``axis``."""
-    return build.kernel_info(_INFO_ENTRY[dtype], B, S, *line_view(tuple(grid), axis))
+    blocks per SM of a launch of B batches of S solves on ``grid`` with lines
+    along ``axis`` and L levels, and the fields of its :func:`tile_plan`."""
+    outer, n, inner = line_view(tuple(grid), axis)
+    plan = tile_plan(B, S, outer, n, inner, L, torch.empty((), dtype=dtype).element_size())
+    info = build.kernel_info(_INFO_ENTRY[dtype], B, S, outer, n, inner, L, _plan_arg(plan))
+    return {**info, **plan._asdict()}
+
+
+def launch(lib, F: torch.Tensor, b: torch.Tensor, x: torch.Tensor, axis: int,
+           plan: Plan | None = None) -> None:
+    """One launch of the kernel in ``lib`` (the package's library or a probe
+    build) on the current stream, x = T^{-1} b, with ``plan`` (else
+    :func:`tile_plan`'s); raises on a CUDA error (a plan the kernel cannot
+    run is one). Counts nothing: :func:`pcr_apply_lines` does."""
+    B, S, grid = _shapes(F, b, axis)
+    outer, n, inner = line_view(grid, axis)
+    L = (F.shape[1] - 1) // 2
+    if plan is None:
+        plan = tile_plan(B, S, outer, n, inner, L, b.element_size())
+    err = getattr(lib, _ENTRY[b.dtype])(
+        F.data_ptr(), b.data_ptr(), x.data_ptr(), B, S, outer, n, inner, L, _plan_arg(plan),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"pcr_lines launch failed: CUDA error {err}")
 
 
 def pcr_apply_lines(F: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
@@ -150,26 +328,20 @@ def pcr_apply_lines(F: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor
 
     F: (B, 2L+1, *grid) from ``ops.lines.pcr_factor_stacked`` (alpha_k, beta_k,
     ..., dinv); b: (B, S, *grid) or (B, *grid). Tensors on the CPU take the
-    plain version; any other launches K3 or raises (no autograd).
+    plain version; any other launches K3 with :func:`tile_plan`'s plan or
+    raises (no autograd).
     """
     global LAUNCHES, CAPTURED
     if F.device.type == "cpu" and b.device.type == "cpu":
         return pcr_apply_lines_plain(F, b, axis)
-    B, S, grid = _check(F, b, axis)
+    plan = _check(F, b, axis)
     lib = build.load_library()
     if b.device.type != "cuda" or F.device != b.device:
         raise ValueError(f"the kernel needs CUDA tensors on one device, got {F.device}, {b.device}")
     x = torch.empty_like(b)
-    outer, n, inner = line_view(grid, axis)
     with torch.cuda.device(b.device):
         capturing = torch.cuda.is_current_stream_capturing()
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _ENTRY[b.dtype])(
-            F.data_ptr(), b.data_ptr(), x.data_ptr(), B, S, outer, n, inner,
-            (F.shape[1] - 1) // 2, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"pcr_lines launch failed: CUDA error {err}")
+        launch(lib, F, b, x, axis, plan)
     if capturing:
         CAPTURED += 1
     else:

@@ -22,7 +22,7 @@ from chip_smoke import (
     run_child,
 )
 from remo3d_tpu_torch import Model
-from remo3d_tpu_torch.kernels import pcr_lines, stencil2d, stencil3d
+from remo3d_tpu_torch.kernels import build, pcr_lines, stencil2d, stencil3d
 from remo3d_tpu_torch.meshing.grid2d import GridSpec2D
 from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
 from remo3d_tpu_torch.ops import block_bcr, block_bcr3d, block_direct, block_direct3d, cg, lines
@@ -464,24 +464,113 @@ def test_pcr_kernel_matches_plain(cuda_device, shape, axis, dtype, tol, solve_ax
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
+def _longest_line(S, inner, itemsize):
+    """The longest line (lines along -2 of an (n, inner) grid) with a plan."""
+    lo, hi = 1, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        L = max(1, (mid - 1).bit_length())
+        lo, hi = (mid, hi) if pcr_lines.tile_plan(1, S, 1, mid, inner, L, itemsize) else (lo, mid)
+    return lo
+
+
 @pytest.mark.cuda
 def test_pcr_kernel_refuses_a_line_beyond_shared_memory(cuda_device):
-    """The longest float64 line whose 5 solves fit in a block's shared memory,
-    twice, launches and matches the plain version; one node more is refused
-    before any launch (no fallback)."""
-    n_max = pcr_lines.MAX_SMEM_BYTES // (2 * 8 * 5)
+    """The longest float64 line whose 5 solves have a plan (split over a
+    cluster of 8) launches and matches the plain version; one node more is
+    refused before any launch (no fallback)."""
+    n_max = _longest_line(5, 3, 8)
+    assert n_max > pcr_lines.MAX_SMEM_BYTES // (2 * 8 * 5)  # longer than one block holds
     F, b = _pcr_inputs(np.random.default_rng(8), (1, 5, n_max, 3), -2, True, torch.float64,
                        cuda_device)
-    assert pcr_lines.kernel_info(1, 5, (n_max, 3), -2, torch.float64)["blocks_per_sm"] >= 1
+    L = (F.shape[1] - 1) // 2
+    info = pcr_lines.kernel_info(1, 5, (n_max, 3), -2, L, torch.float64)
+    assert info["blocks_per_sm"] >= 1 and info["cluster"] == 8
     out = pcr_lines.pcr_apply_lines(F, b, -2)
     ref = pcr_lines.pcr_apply_lines_plain(F, b, -2)
     assert float((out - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
-    F, b = _pcr_inputs(np.random.default_rng(8), (1, 5, n_max + 1, 1), -2, True, torch.float64,
+    F, b = _pcr_inputs(np.random.default_rng(8), (1, 5, n_max + 1, 3), -2, True, torch.float64,
                        cuda_device)
     before = pcr_lines.LAUNCHES
     with pytest.raises(ValueError, match="shared memory"):
         pcr_lines.pcr_apply_lines(F, b, -2)
     assert pcr_lines.LAUNCHES == before
+
+
+# (n, cluster): lines not a multiple of the cluster, shorter than it (n = 1,
+# 2, 3: empty segments), and segments of 1-3 nodes, where every level's
+# shift crosses a segment boundary; rows in a cluster of one block.
+CLUSTER_CASES = [(1, 4), (2, 4), (3, 4), (3, 8), (5, 2), (13, 8), (17, 8), (24, 8), (97, 4),
+                 (193, 2), (1, 1), (17, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n,cluster", CLUSTER_CASES)
+def test_pcr_kernel_cluster_edges(cuda_device, n, cluster, dtype, tol):
+    """K3 with its lines split over a cluster (a plan given to ``launch``)
+    against the plain version: z lines of an (n, 19) grid in tiles of 8
+    lines (the last tile 11), 3 solves, each level's neighbours read from
+    the other blocks' shared memory."""
+    F, b = _pcr_inputs(np.random.default_rng(n), (2, 3, n, 19), -2, True, dtype, cuda_device)
+    L = (F.shape[1] - 1) // 2
+    plan = pcr_lines.make_plan(3, 1, n, 19, L, b.element_size(), 1, 2, cluster, 2)
+    assert plan.cluster == cluster and plan.seg * cluster >= n
+    out = torch.empty_like(b)
+    pcr_lines.launch(build.load_library(), F, b, out, -2, plan)
+    ref = pcr_lines.pcr_apply_lines_plain(F, b, -2)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_pcr_kernel_refuses_a_plan_it_cannot_run(cuda_device):
+    """The C side checks the plan and refuses, not repairs: a segment too
+    short for the line, a cluster above 8, shared memory that does not match
+    the plan, a tile of part of inner across outer lines."""
+    F, b = _pcr_inputs(np.random.default_rng(3), (1, 2, 33, 17), -2, True, torch.float32,
+                       cuda_device)
+    L = (F.shape[1] - 1) // 2
+    good = pcr_lines.make_plan(2, 1, 33, 17, L, 4, 1, 2, 4, 2)
+    bad = [good._replace(seg=8), good._replace(cluster=16, seg=3),
+           good._replace(smem=good.smem + 16), good._replace(stages=1)]
+    lib, out = build.load_library(), torch.empty_like(b)
+    for plan in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pcr_lines.launch(lib, F, b, out, -2, plan)
+    Fr, br = _pcr_inputs(np.random.default_rng(3), (1, 2, 6, 33, 17), -2, True, torch.float32,
+                         cuda_device)
+    wide = pcr_lines.make_plan(2, 6, 33, 17, L, 4, 3, 2, 1, 2)  # TO = 2 with TI < inner
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pcr_lines.launch(lib, Fr, br, torch.empty_like(br), -2, wide)
+    pcr_lines.launch(lib, F, b, out, -2, good)
+    assert torch.allclose(out, pcr_lines.pcr_apply_lines_plain(F, b, -2), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis", [((74, 5, 97, 33), -2), ((8, 5, 49, 9, 17), -3),
+                                        ((8, 5, 49, 9, 17), -2), ((8, 5, 49, 9, 17), -1)])
+def test_pcr_kernel_in_a_cuda_graph_is_bit_equal(cuda_device, shape, axis):
+    """K3 captured into a CUDA graph (after an uncaptured launch of the shape,
+    as pcg's first iteration is) and replayed gives bit for bit the op-by-op
+    result: clustered (z) and whole-line plans; the launch counts in
+    CAPTURED."""
+    F, b = _pcr_inputs(np.random.default_rng(4), shape, axis, True, torch.float32, cuda_device)
+    eager = pcr_lines.pcr_apply_lines(F, b, axis)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = pcr_lines.CAPTURED
+    with torch.cuda.graph(graph):
+        out = pcr_lines.pcr_apply_lines(F, b, axis)
+    assert pcr_lines.CAPTURED == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    b.mul_(2)
+    graph.replay()
+    again = pcr_lines.pcr_apply_lines(F, b, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda

@@ -12,6 +12,7 @@ of 9, 17, 33 and 49 nodes. The kernel itself runs on the card only:
 tests/test_torch_cuda.py.
 """
 
+import math
 import subprocess
 import sys
 from unittest import mock
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from remo3d_tpu.ops import lines as jlines
 from remo3d_tpu.ops import lines3d as jlines3
 from remo3d_tpu_torch import kernels
@@ -258,18 +260,42 @@ def test_wrapper_raises_instead_of_falling_back():
     assert pcr_lines.LAUNCHES == before
 
 
+def _smem(S, nodes, planes, itemsize):
+    """A block's shared memory as csrc/pcr_lines.cu lays it out: x of the S
+    solves twice, ``nodes`` each rounded up to 16 bytes, and ``planes``
+    coefficient slots of ``nodes`` plus 16 bytes of room, rounded up."""
+    V = 16 // itemsize
+    return itemsize * (2 * S * (-(-nodes // V) * V) + planes * (-(-(nodes + V - 1) // V) * V))
+
+
+def longest_line(S, TI, itemsize):
+    """The longest line of one level (3 coefficient planes) whose S solves
+    fit a block when split over a cluster of 8, TI lines per tile: the new
+    limit (before the redesign a line had to fit one block, twice)."""
+    seg = 1
+    while _smem(S, (seg + 1) * TI, 3, itemsize) <= pcr_lines.MAX_SMEM_BYTES:
+        seg += 1
+    return 8 * seg
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_wrapper_refuses_a_line_beyond_shared_memory(dtype):
-    """A line of all S solves, twice, must fit in a block's shared memory: the
-    longest that fits passes every check (and then needs a CUDA tensor), one
-    node more, or one solve more, is refused."""
+@pytest.mark.parametrize("lines", ["strided", "contiguous"])
+def test_wrapper_refuses_a_line_beyond_shared_memory(dtype, lines):
+    """No plan may need more than a block's shared memory; a line is split
+    over a cluster of up to 8 blocks, so the longest line is 8 segments
+    long: the longest that fits passes every check (and then needs a CUDA
+    tensor), one node more, or one solve more, is refused. Strided lines
+    (n, 2) along -2; contiguous lines (2, n) along -1."""
     S, size = 5, torch.empty((), dtype=dtype).element_size()
-    n_max = pcr_lines.MAX_SMEM_BYTES // (2 * size * S)
+    TI = 2 if lines == "strided" else 1
+    n_max = longest_line(S, TI, size)
+    assert n_max > pcr_lines.MAX_SMEM_BYTES // (2 * size * S)  # longer than one block holds
 
     def apply_(S, n):
-        F = torch.empty((1, 3, n, 2), dtype=dtype, device="meta")
-        return pcr_lines.pcr_apply_lines(F, torch.empty((1, S, n, 2), dtype=dtype,
-                                                        device="meta"), -2)
+        grid, axis = ((n, 2), -2) if lines == "strided" else ((2, n), -1)
+        F = torch.empty((1, 3, *grid), dtype=dtype, device="meta")
+        return pcr_lines.pcr_apply_lines(F, torch.empty((1, S, *grid), dtype=dtype,
+                                                        device="meta"), axis)
 
     before = pcr_lines.LAUNCHES
     with mock.patch.object(build, "load_library", return_value=object()):
@@ -280,6 +306,155 @@ def test_wrapper_refuses_a_line_beyond_shared_memory(dtype):
         with pytest.raises(ValueError, match="shared memory"):
             apply_(S + 1, n_max)
     assert pcr_lines.LAUNCHES == before
+    outer, n, inner = (1, n_max, 2) if lines == "strided" else (2, n_max, 1)
+    plan = pcr_lines.tile_plan(1, S, outer, n, inner, 1, size)
+    assert plan.cluster == 8 and plan.smem <= pcr_lines.MAX_SMEM_BYTES
+    assert pcr_lines.tile_plan(1, S, outer, n + 1, inner, 1, size) is None
+
+
+K3_SHAPES = chip_smoke.k3_shapes()
+
+
+def _levels(n):
+    return max(1, math.ceil(math.log2(max(n, 2))))
+
+
+def _coverage(plan, outer, n, inner):
+    """How many blocks hold each node of the grid (outer, n, inner) under
+    ``plan``: even splits of outer and inner into tiles, each line of a tile
+    split over the ``cluster`` blocks, block c holding nodes c, c + cluster,
+    ... (at most ``seg`` of them; none where c >= n)."""
+    count = np.zeros((outer, n, inner), dtype=np.int32)
+    for to in range(plan.tiles_o):
+        o0, o1 = to * outer // plan.tiles_o, (to + 1) * outer // plan.tiles_o
+        assert 1 <= o1 - o0 <= plan.TO
+        for ti in range(plan.tiles_i):
+            j0, j1 = ti * inner // plan.tiles_i, (ti + 1) * inner // plan.tiles_i
+            assert 1 <= j1 - j0 <= plan.TI
+            for rank in range(plan.cluster):
+                assert len(range(rank, n, plan.cluster)) <= plan.seg
+                count[o0:o1, rank::plan.cluster, j0:j1] += 1
+    return count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("label,B,S,grid,axis", K3_SHAPES, ids=[s[0] for s in K3_SHAPES])
+def test_tile_plan_at_the_main_path_shapes(label, B, S, grid, axis, dtype):
+    """The plan of every K3 launch of the 2D and 3D logs (chip_smoke.py's
+    phase 30 shapes): shared memory as the kernel lays it out and at most a
+    block's; a cluster of at most 8; strided lines read in rows of at least
+    32 bytes, split over a cluster (z lines of the finest 2D level and of the
+    3D grid), coefficients staged in at least two stages; every node of
+    every line held by exactly one block; the main five launches (float32)
+    whole waves on an H100, or many."""
+    size = torch.empty((), dtype=dtype).element_size()
+    outer, n, inner = pcr_lines.line_view(grid, axis)
+    L = _levels(n)
+    S = S or 1
+    plan = pcr_lines.tile_plan(B, S, outer, n, inner, L, size)
+    Lr = pcr_lines.levels_run(n, L)
+    assert Lr == L  # a full factor: every level changes the line
+    planes = 2 * Lr + 1 if plan.stages > Lr else 2 * plan.stages
+    assert plan.stages >= 2 and plan.smem == _smem(S, plan.TO * plan.seg * plan.TI, planes, size)
+    assert plan.smem <= pcr_lines.MAX_SMEM_BYTES
+    assert 1 <= plan.cluster <= pcr_lines.MAX_CLUSTER and plan.seg * plan.cluster >= n
+    assert plan.cluster == 1 or plan.TO == 1
+    if inner >= 8:  # strided lines: rows of 32 bytes or more (every tile's)
+        assert (inner // plan.tiles_i) * size >= 32
+    if axis == -len(grid) and (label.startswith("3D") or "level 0" in label):
+        assert plan.cluster >= 2  # the z lines that a block cannot hold 8 of
+    assert (_coverage(plan, outer, n, inner) == 1).all()
+    assert plan in pcr_lines.candidate_plans(S, outer, n, inner, L, size)
+    if label in chip_smoke.MAIN_K3_SHAPES and size == 4:  # whole waves, or many
+        blocks = B * plan.tiles_o * plan.tiles_i * plan.cluster
+        waves = blocks / (pcr_lines.SM_COUNT * pcr_lines.occupancy(plan.smem))
+        assert waves >= 8 or waves / math.ceil(waves) >= 0.9
+
+
+# Plans that chip_smoke.py --tune measured slower than tile_plan's, on an
+# NVIDIA H100 80GB HBM3 at 700 W (median of 5, ms): (shape, dtype, the
+# slower plan, its time, tile_plan's time). The one-vector launches of the
+# coarse 2D levels with PR 13's floor of 1024 blocks or more (its kernel held
+# 2 z lines a block; this one holds many), and the float64 plans of one block
+# per SM that the model chose while it counted nodes, not bytes.
+MEASURED_SLOWER = [
+    ("2D level 2 z, power iteration", 4, (1, 11, 1, 4, 4, 48, 2, 12736), 0.0654, 0.0376),
+    ("2D level 2 z, power iteration", 8, (1, 6, 1, 8, 2, 96, 2, 27712), 0.0585, 0.0515),
+    ("2D level 2 r, power iteration", 4, (12, 1, 16, 1, 1, 41, 2, 11872), 0.0345, 0.0220),
+    ("2D level 2 r, power iteration", 8, (12, 1, 16, 1, 1, 41, 2, 23680), 0.0383, 0.0330),
+    ("2D level 3 z, power iteration", 4, (1, 11, 1, 2, 8, 12, 2, 3232), 0.0515, 0.0167),
+    ("2D level 3 z, power iteration", 8, (1, 6, 1, 4, 4, 24, 2, 6976), 0.0474, 0.0213),
+    ("2D level 3 r, power iteration", 4, (7, 1, 14, 1, 1, 21, 2, 3616), 0.0253, 0.0144),
+    ("2D level 3 r, power iteration", 8, (7, 1, 14, 1, 1, 21, 2, 7104), 0.0259, 0.0152),
+    ("2D level 0 z", 8, (1, 5, 1, 33, 2, 381, 2, 213472), 2.1952, 1.9253),
+    ("2D level 0 r", 8, (12, 1, 64, 1, 1, 161, 2, 216448), 0.9660, 0.8103),
+    ("2D level 1 r", 8, (24, 1, 16, 1, 1, 81, 2, 217792), 0.2353, 0.2008),
+    ("2D level 2 r", 8, (39, 1, 5, 1, 1, 41, 2, 179200), 0.0696, 0.0534),
+    ("3D z", 8, (1, 21, 1, 40, 2, 97, 2, 228256), 0.2170, 0.2066),
+    ("3D p", 8, (2, 49, 97, 1, 1, 17, 2, 186656), 0.1153, 0.1016),
+]
+
+
+@pytest.mark.parametrize("label,size,slower,slower_ms,plan_ms", MEASURED_SLOWER,
+                         ids=[f"{m[0]}-{m[1] * 8}" for m in MEASURED_SLOWER])
+def test_estimated_cost_ranks_measured_plans(label, size, slower, slower_ms, plan_ms):
+    """The cost model puts each plan that was measured slower than
+    tile_plan's above it: no floor of 1024 blocks for one-vector launches
+    (their plans keep fewer), and no float64 tile of one block per SM."""
+    _, B, S, grid, axis = next(s for s in K3_SHAPES if s[0] == label)
+    outer, n, inner = pcr_lines.line_view(grid, axis)
+    S, L = S or 1, _levels(n)
+    slower = pcr_lines.Plan(*slower)
+    plan = pcr_lines.tile_plan(B, S, outer, n, inner, L, size)
+    assert slower in pcr_lines.candidate_plans(S, outer, n, inner, L, size)
+    assert slower_ms > plan_ms
+    assert pcr_lines.estimated_cost(B, S, size, slower) > pcr_lines.estimated_cost(B, S, size, plan)
+    if S == 1:
+        assert B * slower.tiles_o * slower.tiles_i * slower.cluster >= 1024
+        assert B * plan.tiles_o * plan.tiles_i * plan.cluster < 1024
+    else:
+        assert pcr_lines.occupancy(slower.smem) == 1 < pcr_lines.occupancy(plan.smem)
+
+
+def test_tile_plan_at_the_3d_log_shapes():
+    """The 3D chunk (8 batches, 5 solves, 193x17x49), float32: z lines split
+    over clusters of 2 in tiles of 17 lines (68-byte rows), p lines two
+    p-planes (98 lines) a tile, r lines 34 a tile; each a ring of two
+    coefficient stages, two blocks of about 92 KB per SM, 3 waves on 132
+    SMs. Where every level's coefficients fit beside x at no cost (2D level
+    2 r lines), they are staged at once with b."""
+    z = pcr_lines.tile_plan(8, 5, 1, 193, 17 * 49, 8, 4)
+    assert (z.TI, z.tiles_i, z.cluster, z.seg, z.stages) == (17, 49, 2, 97, 2)
+    p = pcr_lines.tile_plan(8, 5, 193, 17, 49, 5, 4)
+    assert (p.TO, p.TI, p.cluster, p.stages) == (2, 49, 1, 2)
+    r = pcr_lines.tile_plan(8, 5, 193 * 17, 49, 1, 6, 4)
+    assert (r.TO, r.cluster, r.stages) == (34, 1, 2)
+    for plan in (z, p, r):
+        assert pcr_lines.occupancy(plan.smem) == 2
+    assert {8 * q.tiles_o * q.tiles_i * q.cluster for q in (z, p, r)} == {784, 776}
+    r2 = pcr_lines.tile_plan(74, 5, 191, 41, 1, 6, 4)
+    assert r2.stages == 7 and r2.smem == _smem(5, r2.TO * 41, 13, 4)
+
+
+def test_estimated_cost_prefers_whole_waves():
+    """The cost model counts whole waves: 784 blocks of two per SM (2.97
+    waves) cost 3 waves, 800 cost 4."""
+    a = pcr_lines.make_plan(5, 1, 193, 833, 8, 4, 1, 49, 2, 2)
+    b = pcr_lines.make_plan(5, 1, 193, 833, 8, 4, 1, 50, 2, 2)
+    assert pcr_lines.occupancy(a.smem) == pcr_lines.occupancy(b.smem) == 2
+    assert pcr_lines.estimated_cost(8, 5, 4, a) < pcr_lines.estimated_cost(8, 5, 4, b)
+
+
+def test_make_plan_and_refusal_follow_the_plan():
+    """make_plan's even splits and segments; a line too long for any plan is
+    refused by _check before anything is built."""
+    p = pcr_lines.make_plan(5, 1, 761, 161, 10, 4, 1, 13, 8, 2)
+    assert (p.TO, p.TI, p.seg) == (1, 13, 96) and p.smem == _smem(5, 13 * 96, 4, 4)
+    assert pcr_lines.make_plan(1, 2, 2, 3, 1, 8, 1, 1, 4, 2).seg == 1  # n shorter than the cluster
+    F = torch.empty((1, 3, 40000, 1), device="meta")
+    with mock.patch.object(build, "load_library", side_effect=AssertionError("built")):
+        with pytest.raises(ValueError, match="shared memory"):
+            pcr_lines.pcr_apply_lines(F, torch.empty((1, 5, 40000, 1), device="meta"), -2)
 
 
 def test_line_apply_calls_the_wrapper_with_the_stacked_factors():
@@ -314,3 +489,13 @@ def test_imports_in_either_order(first):
             "from remo3d_tpu_torch.kernels import pcr_lines; "
             "assert lines.pcr_lines is pcr_lines and pcr_lines._lines is lines")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_wrapper_refuses_a_plane_beyond_int_offsets():
+    """Offsets inside a plane are 32-bit in the kernel: a grid of 2^31 nodes
+    or more is refused before anything is built."""
+    F = torch.empty((1, 3, 2**16, 2**15), device="meta")
+    b = torch.empty((1, 1, 2**16, 2**15), device="meta")
+    with mock.patch.object(build, "load_library", side_effect=AssertionError("built")):
+        with pytest.raises(ValueError, match="int sizes"):
+            pcr_lines.pcr_apply_lines(F, b, -2)
