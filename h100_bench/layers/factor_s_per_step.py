@@ -1,0 +1,3 @@
+"""factor_s_per_step: readers.factor_s_per_step in example01_2d.lm_step; it moves lm_steps_per_s."""
+
+from h100_bench.readers import factor_s_per_step as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""tangent_iters_per_step: readers.tangent_iters_per_step in example01_2d.lm_step; it moves lm_steps_per_s."""
+
+from h100_bench.readers import tangent_iters_per_step as read  # noqa: F401
