@@ -59,6 +59,7 @@ from .parallel.runtime import (
     _timed,
 )
 from .planner import plan_tasks
+from .utils.timers import PhaseTimers, span
 
 MAX_SOURCES = 4
 
@@ -422,13 +423,18 @@ class DifferentiableLog:
 
     def _report(self, timings):
         """``last_report["chunks"]``: per chunk the solve's info (CG iterations
-        and residual, the adjoint iterations once a backward pass has run) and
-        the seconds of its assembly, factorization and solves."""
-        if self.device.type == "cuda":  # the events of the last chunk have passed
-            torch.cuda.synchronize(self.device)
-        for info, seconds in timings:
-            info.update({name: fn() for name, fn in seconds.items()})
-        self.last_report["chunks"] = [info for info, _ in timings]
+        and residual, the adjoint iterations once a backward pass has run),
+        the seconds of its assembly, factorization and solves (``assembly_s``,
+        ``factor_s``, ``solve_s``: CUDA events on a card) and the host's
+        seconds of each of its spans (``host_s``: "assembly", "factor",
+        "solve", and "tangent" of the Jacobian's tangent solve)."""
+        with span("report_sync"):
+            if self.device.type == "cuda":  # the events of the last chunk have passed
+                torch.cuda.synchronize(self.device)
+        for info, seconds, host in timings:
+            info.update({f"{name}_s": fn() for name, fn in seconds.items()})
+            info["host_s"] = dict(host.seconds)
+        self.last_report["chunks"] = [info for info, _, _ in timings]
 
     def _scatter(self, vals, index):
         m, t = index.unbind(-1)
@@ -438,6 +444,7 @@ class DifferentiableLog:
         return out.index_put((m, t), vals)
 
     # ------------------------------------------------------------------ forward
+    @span("forward")
     def __call__(self, resistivities):
         """Log matrix (n_measurements, n_tools) for a resistivity vector.
 
@@ -449,13 +456,13 @@ class DifferentiableLog:
         p = self._params(resistivities)
         vals, index, timings = [], [], []
         for c, keep in self._chunks():
-            info = {}
-            timings.append((info, {}))
-            with _timed(timings[-1][1], "assembly_s", self.device):
+            info, seconds, host = {}, {}, PhaseTimers()
+            timings.append((info, seconds, host))
+            with _timed(seconds, "assembly", self.device, host):
                 C, C_half, rhs, offset = self._system(c, self._sigma(c, 1.0 / p))
-            with _timed(timings[-1][1], "factor_s", self.device):
+            with _timed(seconds, "factor", self.device, host):
                 M_inv = _preconditioner(C, self.direct_schedule, self.factor_passes)
-            with _timed(timings[-1][1], "solve_s", self.device):
+            with _timed(seconds, "solve", self.device, host):
                 w = linear_solve(C_half, rhs, M_inv, tol=self.tol, maxiter=self.maxiter,
                                  info=info)
             u_axis = _axis(w, self._is3d) + offset
@@ -469,6 +476,7 @@ class DifferentiableLog:
         with torch.no_grad():
             return self(resistivities)
 
+    @span("jacobian")
     def jacobian(self, resistivities):
         """d(log)/d(resistivity): (n_measurements, n_tools, P), forward mode.
 
@@ -483,18 +491,19 @@ class DifferentiableLog:
         vals, index, timings = [], [], []
         with torch.no_grad():
             for c, keep in self._chunks():
-                info = {}
-                timings.append((info, {}))
-                with _timed(timings[-1][1], "assembly_s", self.device):
+                info, seconds, host = {}, {}, PhaseTimers()
+                timings.append((info, seconds, host))
+                with _timed(seconds, "assembly", self.device, host):
                     (C, C_half, rhs, offset), (dC_half, d_rhs, d_offset) = \
                         self._tangent_system(c, p)
-                with _timed(timings[-1][1], "factor_s", self.device):
+                with _timed(seconds, "factor", self.device, host):
                     M_inv = _preconditioner(C, self.direct_schedule, self.factor_passes)
-                with _timed(timings[-1][1], "solve_s", self.device):
+                with _timed(seconds, "solve", self.device, host):
                     w = linear_solve(C_half, rhs, M_inv, tol=self.tol, maxiter=self.maxiter,
                                      info=info)
-                    dw = solve_tangents(C_half, dC_half, d_rhs, w, M_inv, tol=self.tol,
-                                        maxiter=self.maxiter, info=info)
+                    with span("tangent"):
+                        dw = solve_tangents(C_half, dC_half, d_rhs, w, M_inv, tol=self.tol,
+                                            maxiter=self.maxiter, info=info)
                 del dC_half, d_rhs
                 d = _readout(c, _axis(w, self._is3d) + offset)
                 dd = _readout(c, _axis(dw, self._is3d) + d_offset)  # (P, RO)

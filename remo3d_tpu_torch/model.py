@@ -24,6 +24,7 @@ from .parallel.runtime import Executor, ExecutorConfig
 from .planner import plan_tasks
 from .plotting import save_results_impl
 from .tools import parse_tools
+from .utils.timers import PhaseTimers, span
 
 conversion_table = mio.CONVERSION_TABLE
 
@@ -168,6 +169,7 @@ class Model:
         return model
 
     # ------------------------------------------------------------------ model setup
+    @span("set_model_parameters")
     def set_model_parameters(
         self,
         formation_model,
@@ -232,6 +234,7 @@ class Model:
         self.gpu_workers = gpu_workers
         self._executor = None  # re-created per simulate_logs configuration
 
+    @span("log")
     def simulate_logs(
         self,
         measurement_depths,
@@ -304,27 +307,29 @@ class Model:
             raise ValueError("The only mesh generator supported in 3D models is gmsh")
         active_window = 0.999 if mesh_generator == "netgen" else 0.99
 
-        if self.dip_deg != 0:
-            # Densify sparse borehole polylines (3D meshing aid).
-            self.borehole_model = mio.add_points_to_borehole(self.borehole_model)
+        timers = PhaseTimers()
+        with timers.phase("plan"):
+            if self.dip_deg != 0:
+                # Densify sparse borehole polylines (3D meshing aid).
+                self.borehole_model = mio.add_points_to_borehole(self.borehole_model)
 
-        simulation_depths, tasks = plan_tasks(
-            self.tools, self.sec, measurement_depths, batch_size
-        )
-        if verbose:
-            print(f"{len(tasks)} simulation tasks prepared")
-
-        mud_resistivities = np.interp(
-            simulation_depths, self.borehole_model[:, 0], self.borehole_model[:, 2]
-        )
-        grid_spec3d, spec_notices = (
-            _resolve_spec3d(
-                self.dip_deg, grid_spec3d, executor_overrides,
-                self.formation_model, self.borehole_model,
+            simulation_depths, tasks = plan_tasks(
+                self.tools, self.sec, measurement_depths, batch_size
             )
-            if not np.isclose(self.dip_deg, 0)
-            else (grid_spec3d, [])
-        )
+            if verbose:
+                print(f"{len(tasks)} simulation tasks prepared")
+
+            mud_resistivities = np.interp(
+                simulation_depths, self.borehole_model[:, 0], self.borehole_model[:, 2]
+            )
+            grid_spec3d, spec_notices = (
+                _resolve_spec3d(
+                    self.dip_deg, grid_spec3d, executor_overrides,
+                    self.formation_model, self.borehole_model,
+                )
+                if not np.isclose(self.dip_deg, 0)
+                else (grid_spec3d, [])
+            )
         if verbose:
             for notice in spec_notices:
                 print(notice)
@@ -342,18 +347,19 @@ class Model:
         )
         if executor_overrides:
             config = dataclasses.replace(config, **executor_overrides)
-        executor = Executor(config)
-        self._executor = executor
+        with timers.phase("prepare"):
+            executor = Executor(config)
+            self._executor = executor
 
-        grids = executor.prepare_batches(
-            tasks,
-            self.formation_model,
-            self.borehole_model[:, :2],
-            mud_resistivities,
-            domain_radius,
-            self.dip_rad,
-            active_window,
-        )
+            grids = executor.prepare_batches(
+                tasks,
+                self.formation_model,
+                self.borehole_model[:, :2],
+                mud_resistivities,
+                domain_radius,
+                self.dip_rad,
+                active_window,
+            )
         results = executor.run(
             tasks,
             grids,
@@ -368,7 +374,8 @@ class Model:
         for i, name in enumerate(self.tools.keys()):
             logs[name] = np.vstack([measurement_depths, results[:, i]]).T
         self.logs = logs
-        self.last_report = {**executor.last_report, "phases": dict(executor.timers.seconds)}
+        self.last_report = {**executor.last_report,
+                            "phases": {**timers.seconds, **executor.timers.seconds}}
 
         if verbose:
             print("\nProcessed in: ", datetime.datetime.now() - start_time)

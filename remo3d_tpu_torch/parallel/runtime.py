@@ -63,7 +63,7 @@ from ..ops.multigrid import MGConfig, make_mg_preconditioner, make_stencil_apply
 from ..ops.stencil import stencil_apply
 from ..ops.stencil3d import pole_project, stencil3d_apply
 from ..planner import BatchTask
-from ..utils.timers import PhaseTimers
+from ..utils.timers import PhaseTimers, entered, request_context, span
 from . import distributed
 
 MAX_SOURCES = 2  # per solve: one (+1) in SEC form or a (+1, -1) pair
@@ -102,34 +102,33 @@ def _solve_chunk(
 
     # Assemble once; keep the raw stencil for the boundary-lift product and derive
     # the eliminated system + MG hierarchy from it.
-    C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
-    C_fine = apply_dirichlet(C_raw, free)
-    n_levels = _feasible_mg_levels(nz, nr)
-    if preconditioner == "multigrid" and n_levels > 1:
-        C, M_inv = make_mg_preconditioner(
-            coords,
-            sigma,
-            free,
-            MGConfig(
-                n_levels=n_levels,
-                kernel_levels=2 if use_kernel else 0,
-                degree_pre=mg_degree,
-                degree_post=mg_degree,
-                power_iters=mg_power_iters,
-                line_max_steps=mg_line_steps,
-                smoother=mg_smoother,
-            ),
-            C_fine=C_fine,
-        )
-    else:
-        # "local" preconditioner parity (ngsolve_functions.py:46): point Jacobi.
-        C = C_fine
-        M_inv = None
-    matvec = make_stencil_apply(C, True) if use_kernel else None
-    return _pcg2(
-        C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
-        tol=tol, maxiter=maxiter, subtract=subtract, timings=timings,
-    )
+    with span("assemble"):
+        C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
+        C_fine = apply_dirichlet(C_raw, free)
+        n_levels = _feasible_mg_levels(nz, nr)
+        if preconditioner == "multigrid" and n_levels > 1:
+            C, M_inv = make_mg_preconditioner(
+                coords,
+                sigma,
+                free,
+                MGConfig(
+                    n_levels=n_levels,
+                    kernel_levels=2 if use_kernel else 0,
+                    degree_pre=mg_degree,
+                    degree_post=mg_degree,
+                    power_iters=mg_power_iters,
+                    line_max_steps=mg_line_steps,
+                    smoother=mg_smoother,
+                ),
+                C_fine=C_fine,
+            )
+        else:
+            # "local" preconditioner parity (ngsolve_functions.py:46): point Jacobi.
+            C = C_fine
+            M_inv = None
+        matvec = make_stencil_apply(C, True) if use_kernel else None
+        b, known = _load2(C_raw, coords, sigma, free, src_i, src_fac, subtract)
+    return _pcg2(C, b, known, M_inv, matvec, tol=tol, maxiter=maxiter, timings=timings)
 
 
 def _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw):
@@ -152,27 +151,35 @@ def _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw):
     return torch.where(freeb, rhs, torch.zeros_like(rhs)), g_lift, u_s
 
 
-def _pcg2(C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec, *, tol, maxiter,
-          subtract, timings=None):
-    """Load build + PCG + axis readout of a 2D chunk, whatever preconditions it.
-
-    ``C_raw`` is the assembled stencil, ``C`` the Dirichlet-eliminated operator
-    CG runs on, ``M_inv`` the preconditioner (None = point Jacobi) and
-    ``matvec`` the operator apply (None = the plain 9-point apply of ``C``).
-    ``timings``, if a dict, gets the CG loop's graph figures under "graph"
-    (:func:`_graph_figures`).
-    """
-    nz, nr = coords.shape[-3], coords.shape[-2]
+def _load2(C_raw, coords, sigma, free, src_i, src_fac, subtract):
+    """The load b of a 2D chunk and the known parts of its solution: u = w +
+    known[0] + ..., where A w = b (``subtract``: the singularity-subtracted
+    load, :func:`_build_rhs2_subtract`; else the point loads, nothing known).
+    ``C_raw`` is the assembled stencil."""
     if subtract:
         rhs, g_lift, u_s = _build_rhs2_subtract(coords, sigma, free, src_i, src_fac, C_raw)
-        w0, info = pcg(C, rhs, M_inv=M_inv, tol=tol, maxiter=maxiter, matvec=matvec)
-        u = w0 + g_lift + u_s
-    else:
-        b = torch.zeros(tuple(src_i.shape[:2]) + (nz, nr), dtype=coords.dtype,
-                        device=coords.device)
-        for k in range(src_i.shape[-1]):
-            b[..., 0].scatter_add_(-1, src_i[..., k : k + 1], src_fac[..., k : k + 1])
+        return rhs, (g_lift, u_s)
+    nz, nr = coords.shape[-3], coords.shape[-2]
+    b = torch.zeros(tuple(src_i.shape[:2]) + (nz, nr), dtype=coords.dtype, device=coords.device)
+    for k in range(src_i.shape[-1]):
+        b[..., 0].scatter_add_(-1, src_i[..., k : k + 1], src_fac[..., k : k + 1])
+    return b, ()
+
+
+def _pcg2(C, b, known, M_inv, matvec, *, tol, maxiter, timings=None):
+    """PCG + axis readout of a 2D chunk, whatever preconditions it.
+
+    ``C`` is the Dirichlet-eliminated operator CG runs on, ``b`` and ``known``
+    the load and the known parts of the solution (:func:`_load2`), ``M_inv``
+    the preconditioner (None = point Jacobi) and ``matvec`` the operator apply
+    (None = the plain 9-point apply of ``C``). ``timings``, if a dict, gets
+    the CG loop's graph figures under "graph" (:func:`_graph_figures`).
+    """
+    with span("cg") as figures:
         u, info = pcg(C, b, M_inv=M_inv, tol=tol, maxiter=maxiter, matvec=matvec)
+        figures.update({k: info[k] for k in ("iterations", "replays", "capture_seconds")})
+    for part in known:
+        u = u + part
     _graph_figures(timings, info)
     # Axis potentials are all the readout needs (electrodes sit on axis nodes).
     return u[..., 0], info["rel_residual"], info["iterations"]
@@ -186,26 +193,30 @@ def _graph_figures(timings: dict | None, info: dict) -> None:
 
 
 @contextlib.contextmanager
-def _timed(timings: dict | None, name: str, device: torch.device):
-    """Time the block (None = no timing): ``timings[name]`` becomes a function
-    that returns the block's seconds. On the CPU that is the host's clock. On
+def _timed(timings: dict | None, name: str, device: torch.device,
+           timers: PhaseTimers | None = None):
+    """Time the block, inside the span ``name`` (a phase of ``timers``, by
+    default of the enclosing span's: :func:`~remo3d_tpu_torch.utils.timers.span`).
+    ``timings[name]`` becomes a function that returns the block's seconds
+    (``timings`` None: no such function). On the CPU that is the host's clock. On
     a CUDA device the block lies between two events of the current stream, so
     queued work is neither counted in nor left out and the host never waits;
     the function may be called once the device has passed the second event,
     as after the ``.cpu()`` of the chunk's results."""
-    if timings is None:
-        yield
-    elif device.type == "cuda":
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        yield
-        end.record()
-        timings[name] = lambda: start.elapsed_time(end) / 1e3
-    else:
-        t0 = time.perf_counter()
-        yield
-        seconds = time.perf_counter() - t0
-        timings[name] = lambda: seconds
+    with span(name, timers=timers):
+        if timings is None:
+            yield
+        elif device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            timings[name] = lambda: start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            yield
+            seconds = time.perf_counter() - t0
+            timings[name] = lambda: seconds
 
 
 def _factor2_direct(C, *, schedule="scan", passes=None):
@@ -243,15 +254,14 @@ def _solve_chunk_direct(
     "factor" (:func:`_timed`) and the CG loop's graph figures (:func:`_pcg2`).
     """
     nz, nr = coords.shape[-3], coords.shape[-2]
-    C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
-    C = apply_dirichlet(C_raw, free)
-    with _timed(timings, "factor", C.device):
-        M_inv = _factor2_direct(C, schedule=schedule, passes=factor_passes)
-    matvec = make_stencil_apply(C, True) if use_kernel else None
-    return _pcg2(
-        C_raw, C, coords, sigma, free, src_i, src_fac, M_inv, matvec,
-        tol=tol, maxiter=maxiter, subtract=subtract, timings=timings,
-    )
+    with span("assemble"):
+        C_raw = fold_to_stencil(element_matrices_2d(coords, sigma), nz, nr)
+        C = apply_dirichlet(C_raw, free)
+        with _timed(timings, "factor", C.device):
+            M_inv = _factor2_direct(C, schedule=schedule, passes=factor_passes)
+        matvec = make_stencil_apply(C, True) if use_kernel else None
+        b, known = _load2(C_raw, coords, sigma, free, src_i, src_fac, subtract)
+    return _pcg2(C, b, known, M_inv, matvec, tol=tol, maxiter=maxiter, timings=timings)
 
 
 def _assemble3(coords, sigma, free, metric="cartesian"):
@@ -309,9 +319,8 @@ def _factor3_direct(C, *, np_, nr, schedule="scan", passes=None):
     return lambda r: block_thomas_apply_3d(G_all, C, r, np_, nr)
 
 
-def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, precond="adi",
-          adi_damp=0.6, timings=None):
-    """Pole-tied preconditioned CG + axis readout.
+def _precond3(C, matvec, direct_apply=None, precond="adi", adi_damp=0.6):
+    """The preconditioner M^{-1} of the pole-tied CG on stencil C.
 
     ``matvec`` is the pole-tied operator P A P (``_apply3(C, use_kernel,
     pole=True)``). Preconditioners (the line solves are exact, factored PCR):
@@ -323,8 +332,6 @@ def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, preco
     * ``"direct"``: ``direct_apply``, the banded-block factorization's apply
       from :func:`_factor3_direct`. It leaves the axis DOFs untied, so
       M^{-1} r = P apply(P r): a handful of CG iterations.
-
-    ``timings``, if a dict, gets the CG loop's graph figures (:func:`_pcg2`).
     """
     if precond == "direct":
         def M_inv(r):
@@ -344,11 +351,28 @@ def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, preco
                 r = pole_project(r)
                 z = sum(line_apply3(factors[d], r) for d in factors) / 3.0
                 return pole_project(z)
+    return M_inv
 
-    u, info = pcg(None, b, M_inv=M_inv, tol=tol, maxiter=maxiter, n_grid_axes=3, matvec=matvec)
+
+def _cg3(b, u_axis_offset, matvec, M_inv, *, tol, maxiter, timings=None):
+    """Pole-tied PCG + axis readout of a 3D chunk (``matvec`` and ``M_inv``
+    as :func:`_precond3`'s). ``timings``, if a dict, gets the CG loop's graph
+    figures (:func:`_pcg2`)."""
+    with span("cg") as figures:
+        u, info = pcg(None, b, M_inv=M_inv, tol=tol, maxiter=maxiter, n_grid_axes=3,
+                      matvec=matvec)
+        figures.update({k: info[k] for k in ("iterations", "replays", "capture_seconds")})
     _graph_figures(timings, info)
     u_axis = u[..., :, :, 0].mean(dim=-1) + u_axis_offset
     return u_axis, info["rel_residual"], info["iterations"]
+
+
+def _pcg3(C, b, u_axis_offset, matvec, direct_apply=None, *, tol, maxiter, precond="adi",
+          adi_damp=0.6, timings=None):
+    """Pole-tied preconditioned CG + axis readout, as the JAX package's
+    ``_pcg3``: :func:`_precond3`'s ``precond`` of C, then :func:`_cg3`."""
+    M_inv = _precond3(C, matvec, direct_apply, precond, adi_damp)
+    return _cg3(b, u_axis_offset, matvec, M_inv, tol=tol, maxiter=maxiter, timings=timings)
 
 
 def _solve_chunk_3d(
@@ -374,28 +398,28 @@ def _solve_chunk_3d(
     the CG loop's graph figures (:func:`_pcg2`).
     """
     nz, np_, nr = coords.shape[-4], coords.shape[-3], coords.shape[-2]
-    C_raw, C = _assemble3(coords, sigma, free, metric=metric)
-    if subtract:
-        b, u_axis_offset = _build_rhs3_subtract(
-            coords, sigma, free, src_i, src_fac, _apply3(C_raw, use_kernel), metric=metric
-        )
-    else:
-        # The load lands on the tied axis node: fac/NP on each azimuth copy.
-        B, S = src_i.shape[:2]
-        b_axis = torch.zeros((B, S, nz), dtype=coords.dtype, device=coords.device)
-        b_axis.scatter_add_(-1, src_i, src_fac / np_)
-        b = torch.zeros((B, S, nz, np_, nr), dtype=coords.dtype, device=coords.device)
-        b[..., 0] = b_axis[..., None]
-        u_axis_offset = torch.zeros_like(b_axis)
-    direct_apply = None
-    if precond == "direct":
-        with _timed(timings, "factor", C.device):
-            direct_apply = _factor3_direct(
-                C, np_=np_, nr=nr, schedule=schedule, passes=factor_passes)
-    return _pcg3(
-        C, b, u_axis_offset, _apply3(C, use_kernel, pole=True), direct_apply, tol=tol,
-        maxiter=maxiter, precond=precond, adi_damp=adi_damp, timings=timings,
-    )
+    with span("assemble"):
+        C_raw, C = _assemble3(coords, sigma, free, metric=metric)
+        if subtract:
+            b, u_axis_offset = _build_rhs3_subtract(
+                coords, sigma, free, src_i, src_fac, _apply3(C_raw, use_kernel), metric=metric
+            )
+        else:
+            # The load lands on the tied axis node: fac/NP on each azimuth copy.
+            B, S = src_i.shape[:2]
+            b_axis = torch.zeros((B, S, nz), dtype=coords.dtype, device=coords.device)
+            b_axis.scatter_add_(-1, src_i, src_fac / np_)
+            b = torch.zeros((B, S, nz, np_, nr), dtype=coords.dtype, device=coords.device)
+            b[..., 0] = b_axis[..., None]
+            u_axis_offset = torch.zeros_like(b_axis)
+        direct_apply = None
+        if precond == "direct":
+            with _timed(timings, "factor", C.device):
+                direct_apply = _factor3_direct(
+                    C, np_=np_, nr=nr, schedule=schedule, passes=factor_passes)
+        matvec = _apply3(C, use_kernel, pole=True)
+        M_inv = _precond3(C, matvec, direct_apply, precond, adi_damp)
+    return _cg3(b, u_axis_offset, matvec, M_inv, tol=tol, maxiter=maxiter, timings=timings)
 
 
 _numpy_fallback_warned = False
@@ -893,10 +917,11 @@ class Executor:
                     free[bi] = pad.free_mask
                 return [coords, sigma, free, *stage_sources(batch_tasks, batch_grids, B)]
 
-        def host_arrays_ahead(start):
+        def host_arrays_ahead(start, context):
             """:func:`host_arrays` on the pipeline's thread, its phases timed
-            as "mesh_ahead" and "stack_ahead" (they overlap the solve)."""
-            with self.timers.suffixed("_ahead"):
+            as "mesh_ahead" and "stack_ahead" (they overlap the solve) and
+            recorded as spans of the submitting request, ``context``."""
+            with entered(context), self.timers.suffixed("_ahead"):
                 return host_arrays(start)
 
         def place(arrays):
@@ -956,7 +981,8 @@ class Executor:
                     timings=timings,
                 )
             u_axis, rel_res, iters = out
-            host = u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
+            with self.timers.phase("results_wait"):
+                host = u_axis.cpu().numpy(), rel_res.cpu().numpy(), iters
             if "factor" in timings:  # read behind the copies: the device has passed it
                 self.last_report["factor_seconds"] += timings["factor"]()
             return host, timings["graph"]
@@ -988,13 +1014,13 @@ class Executor:
                 if ahead is not None:
                     for nxt in todo[i + 1 : i + window]:
                         if nxt not in pending:
-                            pending[nxt] = ahead.submit(host_arrays_ahead, nxt)
+                            pending[nxt] = ahead.submit(host_arrays_ahead, nxt,
+                                                        request_context())
                 batch_tasks, batch_grids, _ = share(start)
                 with self.timers.phase("stage"):
                     args = place(arrays)
                 del arrays
-                with self.timers.phase("solve"), torch.profiler.record_function(
-                        "remo3d_tpu_torch.solve_chunk"):
+                with self.timers.phase("solve", label="remo3d_tpu_torch.solve_chunk"):
                     (u_axis, rel_res, iters), graph = solve(args)
                 del args
                 n_failed = 0
