@@ -22,11 +22,14 @@ has one tensor shape; only node positions and cell conductivities change.
 
 A numpy copy of ``remo3d_tpu.meshing.grid2d`` (the JAX package cannot be
 imported without JAX); tests/test_torch_host.py pins the two bit-equal.
+``_graded_1d`` is written differently (its sample offsets built once per
+``h_min``, the nearest anchor found by bisection) and gives bit-equal outputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -87,6 +90,18 @@ class Grid2D:
         return i
 
 
+@functools.lru_cache(maxsize=64, typed=True)
+def _anchor_offsets(h_min: float) -> np.ndarray:
+    """The density samples around one anchor of ``_graded_1d``, as offsets from
+    it: 48 geometric steps from ``h_min / 4`` to 2 on each side, and 0. Cached
+    per ``h_min`` (read-only)."""
+    offsets = np.concatenate(
+        [-np.geomspace(h_min / 4, 2.0, 48)[::-1], [0.0], np.geomspace(h_min / 4, 2.0, 48)]
+    )
+    offsets.flags.writeable = False
+    return offsets
+
+
 def _graded_1d(
     lo: float,
     hi: float,
@@ -104,19 +119,23 @@ def _graded_1d(
     """
     samples = [np.linspace(lo, hi, 4001)]
     for centers, h_min, _ in h_terms:
-        for c in np.atleast_1d(centers):
-            local = c + np.concatenate(
-                [-np.geomspace(h_min / 4, 2.0, 48)[::-1], [0.0], np.geomspace(h_min / 4, 2.0, 48)]
-            )
-            samples.append(local)
+        # Center by center, in the order the JAX package's loop appends them.
+        centers = np.atleast_1d(centers)
+        samples.append((centers[:, None] + _anchor_offsets(h_min)[None, :]).ravel())
     zz = np.unique(np.clip(np.concatenate(samples), lo, hi))
 
     h = np.full_like(zz, h_max)
     for centers, h_min, slope in h_terms:
-        centers = np.atleast_1d(centers)
+        centers = np.sort(np.atleast_1d(centers))
         if centers.size == 0:
             continue
-        dist = np.min(np.abs(zz[:, None] - centers[None, :]), axis=1)
+        # The nearest center is one of the two that bracket each sample: float
+        # subtraction is monotone, so this is the minimum over all centers, bit
+        # for bit.
+        j = np.searchsorted(centers, zz)
+        below = centers[np.maximum(j - 1, 0)]
+        above = centers[np.minimum(j, centers.size - 1)]
+        dist = np.minimum(np.abs(zz - below), np.abs(zz - above))
         h = np.minimum(h, h_min + slope * dist)
     density = 1.0 / h
     cum = np.concatenate([[0.0], np.cumsum(0.5 * (density[1:] + density[:-1]) * np.diff(zz))])

@@ -3,6 +3,7 @@
 copy of the JAX package's: same inputs, bit-equal outputs."""
 
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -19,6 +20,8 @@ import remo3d_tpu_torch.meshing.grid2d as tgrid
 import remo3d_tpu_torch.meshing.grid3d as tgrid3
 import remo3d_tpu_torch.planner as tplanner
 import remo3d_tpu_torch.tools as ttools
+from remo3d_tpu_torch.parallel.runtime import Executor, ExecutorConfig
+from remo3d_tpu_torch.validation.models import BM2_BOREHOLE, BM2_FORMATION, EXAMPLE01_TOOLS
 
 TOOL_NAMES = ["B5.7A0.4M", "B4.48A1.62M", "M1.0A0.1B", "A2.0M0.5N", "N0.5M2.0A",
               "M4.0A0.5B", "A1.0M0.2N", "A8.0M1.0N"]
@@ -145,3 +148,84 @@ def test_grid3d_bit_equal(preset, dip_deg):
                   "region_fz_layer", "region_fixed"):
         _assert_same(getattr(jg, field), getattr(tg, field), f"{preset}@{dip_deg}.{field}")
     assert jg.axis_node_index(5.5) == tg.axis_node_index(5.5)
+
+
+def _example01_plan():
+    """Example_01's 2D log as ``Model.simulate_logs`` plans it: six tools
+    (single electrode configuration), 251 depths every 0.1 m, batches of 5,
+    over the BM2-like invaded formation."""
+    tools, sec = ttools.parse_tools(EXAMPLE01_TOOLS, True)
+    depths = 0.1 * np.arange(251)
+    formation = tio.set_formation_parameters(BM2_FORMATION)
+    borehole = tio.set_borehole_parameters(BM2_BOREHOLE, "radius")
+    sim_depths, tasks = tplanner.plan_tasks(tools, sec, depths, 5)
+    mud = np.interp(sim_depths, borehole[:, 0], borehole[:, 2])
+    return tasks, formation, borehole[:, :2], mud
+
+
+def _example01_batch_calls():
+    """The arguments of the two ``_graded_1d`` calls (z lines, far radial
+    stations) of the Example_01 batch centred nearest 10 m, inside an invaded bed."""
+    tasks, formation, borehole, mud = _example01_plan()
+    b = int(np.argmin([abs(t.center_depth - 10.0) for t in tasks]))
+    t = tasks[b]
+    lm = tcarve.carve_local_model(formation, borehole, float(mud[t.batch_index]),
+                                  t.center_depth, 50.0, active_geometry_window=0.999)
+    sources = np.unique(np.concatenate([s.source_positions for s in t.solves]))
+    calls = []
+    real = tgrid._graded_1d
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    with mock.patch.object(tgrid, "_graded_1d", record):
+        tgrid.build_profiles_2d(tgrid.GridSpec2D(), 50.0, lm, t.electrode_positions, sources)
+    assert len(calls) == 2 and calls[1][3][1][0].size  # the far call anchors invasion
+    return calls
+
+
+GRADED_CASES = {
+    "many_centers": lambda: [(-50.0, 50.0, 761, [
+        (np.random.default_rng(17).uniform(-8.0, 8.0, 30), 0.02, 0.5),
+        (np.array([0.0]), 0.01, 0.6)], 6.0)],
+    "duplicate_centers": lambda: [(-50.0, 50.0, 97, [
+        (np.array([-1.0, 0.5, 0.5, 0.5, 2.0, -1.0]), 0.02, 0.5)], 6.0)],
+    "centers_outside": lambda: [(-5.0, 5.0, 65, [
+        (np.array([-7.5, -5.0, 0.3, 5.0, 9.0]), 0.05, 1.0), (np.array([12.0]), 0.01, 0.6)], 1.2)],
+    "term_without_centers": lambda: [(-50.0, 50.0, 97, [
+        (np.array([0.0]), 0.01, 0.6), (np.array([]), 0.05, 1.0)], 6.0)],
+    "single_center": lambda: [(0.13, 50.0, 149, [(np.array([0.13]), 0.008, 0.12)], 6.0)],
+    "anchors_3d_two_h_min": lambda: [(0.13, 50.0, 53, [
+        (np.array([0.13]), 0.008, 0.12), (np.array([0.11, 0.125]), 0.002, 0.12),
+        (np.array([0.35, 0.5]), 0.008, 0.12)], 6.0)],
+    "example01_batch": _example01_batch_calls,
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRADED_CASES))
+def test_graded_1d_bit_equal(case):
+    """The port's ``_graded_1d`` (offsets cached per h_min, nearest anchor by
+    bisection) gives the JAX package's lines byte for byte."""
+    for args in GRADED_CASES[case]():
+        a, b = tgrid._graded_1d(*args), jgrid._graded_1d(*args)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_example01_light_grids_bit_equal():
+    """The device-meshing profiles that ``Executor.prepare_batches`` builds
+    for Example_01's log (its first 24 and last 8 batches) equal the JAX
+    package's ``build_grid2d_light`` on the same carved models."""
+    tasks, formation, borehole, mud = _example01_plan()
+    executor = Executor(ExecutorConfig(device="cpu", device_meshing=True))
+    grids = executor.prepare_batches(tasks, formation, borehole, mud, 50.0, 0.0, 0.999)
+    assert executor.mesher == "device"
+    jspec = jgrid.GridSpec2D(**dataclasses.asdict(executor.config.spec))
+    for b in list(range(24)) + list(range(len(tasks) - 8, len(tasks))):
+        t = tasks[b]
+        lm = tcarve.carve_local_model(formation, borehole, float(mud[t.batch_index]),
+                                      t.center_depth, 50.0, active_geometry_window=0.999)
+        sources = np.unique(np.concatenate([s.source_positions for s in t.solves]))
+        ref = jgrid.build_grid2d_light(jspec, 50.0, lm, t.electrode_positions, sources)
+        assert grids[b].content_bytes() == ref.content_bytes(), b
