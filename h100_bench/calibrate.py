@@ -13,7 +13,9 @@ nearest precision below the configuration's float32, which the program runs
 with TF32 off), put in the program's place and compared the same way (the
 upper end). Not part of a benchmark run. One JSON line per seed, then a
 summary line: the largest program reading and the smallest control reading
-of each number.
+of each number. A cell whose traffic has ``"ranks": N`` is read over N
+processes, one card each, as its runs are (:mod:`h100_bench.ranks`), and its
+sample is drawn among each rank's share as a run's check draws it.
 """
 
 from __future__ import annotations
@@ -41,29 +43,76 @@ def main(argv=None) -> int:
 
 
 def calibrate(spec, first_seed, n_seeds, n_control, n_requests, device) -> int:
-    from . import drive
+    from . import drive, ranks
 
+    if ranks.ranks_of(spec) > 1:
+        return calibrate_ranks(spec, first_seed, n_seeds, n_control, n_requests, device)
     config, traffic = spec["config"], spec["traffic"]
     entry = drive.ENTRIES[traffic["entry"]](drive.Workload(config, traffic, first_seed), device)
     entry.request(-1)
-    program, control = {}, {}
+    lines = []
     for seed in range(first_seed, first_seed + n_seeds):
         t0 = time.perf_counter()
         entry.w = drive.Workload(config, traffic, seed)
         records = [entry.request(i) for i in range(n_requests)]
-        walls = time.perf_counter() - t0
-        line = {"seed": seed, "failed": sum(bool(r["failed"]) for r in records),
-                "program": {}, "control": {}}
-        for r, batches in entry.w.check_sample(n_requests, entry.n_batches).items():
-            ref = entry.reference(r, batches, "float64", device)
-            for k, v in entry.compare(records[r], ref).items():
-                line["program"][k] = max(v, line["program"].get(k, 0.0))
-            if seed < first_seed + n_control:
-                low = entry.as_record(entry.reference(r, batches, "tf32", device))
-                for k, v in entry.compare(low, ref).items():
-                    line["control"][k] = max(v, line["control"].get(k, 0.0))
-        line["seconds"] = {"requests": walls, "all": time.perf_counter() - t0}
-        print(json.dumps(line), flush=True)
+        sample = entry.w.check_sample(n_requests, entry.n_batches)
+        lines.append(readings(entry, records, sample, seed < first_seed + n_control, device,
+                              t0))
+    return summarize(spec, lines)
+
+
+def calibrate_ranks(spec, first_seed, n_seeds, n_control, n_requests, device) -> int:
+    """:func:`calibrate` over the cell's ranks: each seed's requests through
+    every rank, the readings on rank 0 (the children wait meanwhile)."""
+    from . import ranks
+
+    n = ranks.ranks_of(spec)
+    group = ranks.Group(n)
+    lines = []
+    try:
+        group.start({"spec": spec, "seed": first_seed, "device": device})
+        me = ranks.Rank(spec, first_seed, device)
+        group.step({"i": -1, "trace": False, "seed": first_seed}, me, ranks.SETUP_S)
+        for seed in range(first_seed, first_seed + n_seeds):
+            t0 = time.perf_counter()
+            records, owner_of = [], {}
+            for i in range(n_requests):
+                rec, reports = group.step({"i": i, "trace": False, "seed": seed}, me)
+                records.append(rec)
+                owner_of[i] = ranks.owners(reports, me.entry.n_batches)
+            sample = ranks.check_sample(me.entry.w, owner_of, n)
+            lines.append(readings(me.entry, records, sample, seed < first_seed + n_control,
+                                  device, t0))
+        group.stop(me)
+    finally:
+        group.close()
+    return summarize(spec, lines)
+
+
+def readings(entry, records, sample, control: bool, device, t0) -> dict:
+    """One seed's line: the program's readings over ``sample`` and, with
+    ``control``, the TF32 control's; printed, and returned."""
+    walls = time.perf_counter() - t0
+    line = {"seed": entry.w.seed, "failed": sum(bool(r["failed"]) for r in records),
+            "program": {}, "control": {}}
+    for r, batches in sample.items():
+        ref = entry.reference(r, batches, "float64", device)
+        for k, v in entry.compare(records[r], ref).items():
+            line["program"][k] = max(v, line["program"].get(k, 0.0))
+        if control:
+            low = entry.as_record(entry.reference(r, batches, "tf32", device))
+            for k, v in entry.compare(low, ref).items():
+                line["control"][k] = max(v, line["control"].get(k, 0.0))
+    line["seconds"] = {"requests": walls, "all": time.perf_counter() - t0}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def summarize(spec, lines) -> int:
+    """The summary line: the largest program and the smallest control
+    reading of each number, beside the cell's limits."""
+    program, control = {}, {}
+    for line in lines:
         for k, v in line["program"].items():
             program[k] = max(v, program.get(k, 0.0))
         for k, v in line["control"].items():

@@ -259,12 +259,15 @@ class LMStep:
         return {"values": values, "jacobian": jac}
 
 
-def check(entry, records: list, device: str) -> dict:
+def check(entry, records: list, device: str, sample: dict | None = None) -> dict:
     """Each number the cell compares, its widest over the sample of the
-    window's (request, batch) pairs drawn from the seed: the program's
-    answers against the float64 reference's."""
+    window's (request, batch) pairs drawn from the seed (``sample``, by
+    default :meth:`Workload.check_sample`'s): the program's answers against
+    the float64 reference's."""
+    if sample is None:
+        sample = entry.w.check_sample(len(records), entry.n_batches)
     out: dict = {}
-    for r, batches in entry.w.check_sample(len(records), entry.n_batches).items():
+    for r, batches in sample.items():
         numbers = entry.compare(records[r], entry.reference(r, batches, "float64", device))
         out = {k: float(max(v, out.get(k, 0.0))) for k, v in numbers.items()}
     return out

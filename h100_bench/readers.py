@@ -44,6 +44,13 @@ def wall_p95(ctx):
 # ---- per layer ----------------------------------------------------------------------
 
 
+def wall_p95_untraced(ctx):
+    """:func:`wall_p95` of the requests of the window that ran outside the
+    traced stretch (request 0 always does)."""
+    traced = {id(r) for r in ctx["traced"]}
+    return wall_p95({"records": [r for r in ctx["records"] if id(r) not in traced]})
+
+
 def _phases_per_log(ctx, names):
     recs = [r for r in ctx["records"] if "phases" in r]
     if not recs:
@@ -151,3 +158,43 @@ def tangent_iters_per_step(ctx):
         return None
     return sum(c.get("tangent_iterations", 0) for r in recs
                for c in r["calls"]["jacobian"]) / len(recs)
+
+
+# ---- per layer, over the ranks of a multi-process run (ctx["ranks"]) ---------------
+
+
+def _over_ranks(ctx, per_rank):
+    """The mean over the ranks of ``per_rank(rank)``, each rank's window
+    records and traced summary (``h100_bench.ranks``), of those not None."""
+    values = [v for v in (per_rank(r) for r in ctx.get("ranks") or ()) if v is not None]
+    return sum(values) / len(values) if values else None
+
+
+def plan_s_per_log_ranks(ctx):
+    """Host seconds per log of the "plan" phase (``Model.simulate_logs``
+    plans the whole log on every rank), mean over the window's logs and the
+    ranks."""
+    return _over_ranks(ctx, lambda r: _phases_per_log(r, ("plan",)))
+
+
+def mesh_s_per_log_ranks(ctx):
+    """:func:`mesh_s_per_log` ("mesh" + "pipeline_wait") of each rank, mean
+    over the ranks."""
+    return _over_ranks(ctx, lambda r: _phases_per_log(r, ("mesh", "pipeline_wait")))
+
+
+def rank_wait_s_per_log(ctx):
+    """Seconds per traced log from the end of a rank's last "readout" span to
+    the end of its "log" root span (``spans.rank_wait_s_per_log``), mean
+    over the ranks."""
+    return _over_ranks(ctx, lambda r: (r["trace"] or {}).get("rank_wait_s"))
+
+
+def device_idle_ranks(ctx):
+    """:func:`device_idle` of each card over its rank's traced stretch, mean
+    over the cards."""
+    def idle(r):
+        t = r["trace"]
+        return 100.0 * (1.0 - t["busy_s"] / t["host_s"]) if t and t["n_activities"] else None
+
+    return _over_ranks(ctx, idle)

@@ -30,6 +30,9 @@ standard output is one JSON object (``correct``, ``attempted``, ``failed``,
 standard error give the same numbers. Without a card, or with fewer cards
 than the cell asks for, it exits 1 and prints no result; so it does if the
 process holds JAX or the JAX package once the window has closed.
+
+A traffic with ``"ranks": N`` runs the cell over N processes, one card
+each, this one rank 0 (:mod:`h100_bench.ranks`).
 """
 
 from __future__ import annotations
@@ -157,12 +160,8 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
 
     ctx = {"records": records, "traced": records[1:1 + n_trace], "stretch": stretch,
            "window_s": window_s, "setup_s": setup_s, "workload": w}
-    metrics = {}
-    for m in spec["per_layer"] if trace else spec["end_to_end"]:
-        value = reader("layers" if trace else "end_to_end", m["name"])(ctx)
-        if value is not None:
-            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    out = {"correct": False, "attempted": attempted, "failed": failed, "metrics": metrics,
+    out = {"correct": False, "attempted": attempted, "failed": failed,
+           "metrics": measure(spec, ctx, trace),
            "device": {"platform": "gpu", "kind": torch.cuda.get_device_name() if on_cuda
                       else "cpu", "count": int(cell["chips"]), "memory_peak_bytes": int(peak)}}
     if stretch is not None:
@@ -178,11 +177,31 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
     t1 = time.perf_counter()
     numbers = drive.check(entry, records, device)
     log(f"h100_bench: check ({time.perf_counter() - t1:.1f} s)")
-    # A number that could not be worked out (a NaN answer, a request that
-    # raised) is null in the line and fails the run.
+    return judge(out, spec, numbers)
+
+
+def measure(spec: dict, ctx: dict, trace: bool) -> dict:
+    """The line's metrics: the cell's end-to-end ones, or with ``trace`` its
+    per-layer ones, each read by its own reader from ``ctx``."""
+    metrics = {}
+    for m in spec["per_layer"] if trace else spec["end_to_end"]:
+        value = reader("layers" if trace else "end_to_end", m["name"])(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
+    return metrics
+
+
+def judge(out: dict, spec: dict, numbers: dict) -> dict:
+    """``out`` with its ``correct`` and, last, its ``checks``: each number
+    compared beside its limit. A number that could not be worked out (a NaN
+    answer, a request that raised) is null in the line and fails the run, as
+    does a limit with no number."""
     checks = {k: {"value": v if math.isfinite(v) else None, "limit": spec["limits"][k]}
               for k, v in sorted(numbers.items())}
-    out["correct"] = bool(attempted and not failed and set(numbers) == set(spec["limits"])
+    checks.update({k: {"value": None, "limit": v} for k, v in sorted(spec["limits"].items())
+                   if k not in checks})
+    out["correct"] = bool(out["attempted"] and not out["failed"]
+                          and set(numbers) == set(spec["limits"])
                           and all(c["value"] is not None and c["value"] <= c["limit"]
                                   for c in checks.values()))
     out["checks"] = checks
@@ -205,12 +224,19 @@ def main(argv=None) -> int:
 
     import torch
 
+    from . import ranks
+
     chips = int(spec["cell"]["chips"])
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         log(f"h100_bench: the cell needs {chips} CUDA card(s); "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} visible")
         return 1
-    out = run(spec, args.seed, args.seconds, bool(args.trace))
+    if ranks.ranks_of(spec) > 1:
+        out = ranks.run(spec, args.seed, args.seconds, bool(args.trace))
+        if out is None:
+            return 1
+    else:
+        out = run(spec, args.seed, args.seconds, bool(args.trace))
     foreign = foreign_modules()
     if foreign:
         log(f"h100_bench: the run holds {foreign}")

@@ -103,6 +103,31 @@ def _per_request(ctx, names):
     return sum(by.get(n, 0.0) for n in names) / len(ctx["traced"])
 
 
+def rank_wait_s_per_log(since_ns: int):
+    """Seconds per log, in this process, from the end of the log's last
+    "readout" span to the end of its "log" root span, mean over the logs
+    whose root span started at or after ``since_ns``: under several ranks,
+    the wait for the slowest rank, the gather of the readouts and the
+    failure counts' sum over the ranks. None without such logs."""
+    try:
+        from remo3d_tpu_torch.utils.timers import span_snapshot
+    except ImportError:  # a program without spans
+        return None
+    return rank_wait(span_snapshot().spans, since_ns)
+
+
+def rank_wait(spans, since_ns: int):
+    """:func:`rank_wait_s_per_log` of ``spans`` (the program's ``Span`` records)."""
+    roots = {s.id: s for s in spans if s.parent is None and s.name == "log"
+             and s.start_ns >= since_ns}
+    last = {}
+    for s in spans:
+        if s.name == "readout" and s.request in roots:
+            last[s.request] = max(last.get(s.request, 0), s.end_ns)
+    waits = [(roots[r].end_ns - end) / 1e9 for r, end in last.items()]
+    return sum(waits) / len(waits) if waits else None
+
+
 def idle_prep_s_per_log(ctx):
     """Device idle seconds per traced log under the caller's PREP spans."""
     return _per_request(ctx, PREP)

@@ -1,18 +1,21 @@
 """The harness: its files found by name, BENCHMARK.json within its format,
 the seeded request streams, and a run of each cell driven on the CPU at a
 small size, unbroken (correct) and with the timed path broken underneath
-(not correct)."""
+(not correct). A cell of several ranks runs as two ranks over gloo, rank 0
+in a process of its own (:func:`run_ranks`)."""
 
 import json
 import math
 import os
 import re
+import subprocess
+import sys
 import time
 
 import numpy as np
 import pytest
 
-from h100_bench import drive, run
+from h100_bench import drive, ranks, run
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -31,7 +34,100 @@ def small(cell: str, count: int) -> dict:
         grid.update(nz=65, nr=17, n_wall_cells=4, n_blend_cells=2)
     depths = spec["traffic"]["depths"]
     (spec["config"]["depths"] if depths == "all" else depths)["count"] = count
+    if "ranks" in spec["traffic"]:
+        spec["traffic"]["ranks"] = 2
     return spec
+
+
+# Rank 0 of a CPU run of a cell of several ranks, with a fault of FAULTS
+# planted in it where one is named, or with "no_exchange" its gather of the
+# readouts left out (argv[1]: a JSON object of run_ranks's arguments).
+RANK0 = """
+import json, sys, time
+t_start = time.perf_counter()
+sys.path.insert(0, "h100_bench/tests")
+import numpy as np
+import pytest
+from test_h100_bench_harness import FAULTS, small
+from h100_bench import drive, ranks
+a = json.loads(sys.argv[1])
+if a["fault"] == "no_exchange":
+    from remo3d_tpu_torch.parallel import distributed
+    distributed.gather_result = lambda x, owned=None: np.array(x, dtype=float)
+elif a["fault"]:
+    FAULTS[a["fault"]](pytest.MonkeyPatch(), drive.SimulateLogs)
+ranks.STALL_S = a["stall_s"]
+out = ranks.run(small(a["cell"], a["count"]), a["seed"], a["seconds"], a["trace"],
+                device="cpu", t_start=t_start, child=a["child"])
+print(json.dumps(out))
+"""
+# Rank 1 with a planted fault (argv[1]): its share of each log "altered"
+# (x 1.003) or "stale" (the previous log's) before the gather, or its gather
+# left out ("no_exchange"); or, at request 1, it "raises", is "killed" or
+# "hangs".
+RANK1 = """
+import os, signal, sys, time
+import numpy as np
+fault = sys.argv[1]
+if os.environ["RANK"] == "1":
+    from h100_bench import drive
+    from remo3d_tpu_torch.parallel import distributed
+    gather, request, last = distributed.gather_result, drive.SimulateLogs.request, {}
+
+    def gather_result(x, owned=None):
+        x = np.array(x, dtype=float)
+        prev, last["x"] = last.get("x"), x.copy()
+        if fault == "no_exchange":
+            return x
+        if fault == "altered":
+            x[owned] *= 1.003
+        elif fault == "stale" and prev is not None:
+            x[owned] = prev[owned]
+        return gather(x, owned)
+
+    def faulty(self, i):
+        if i == 1 and fault == "raises":
+            raise RuntimeError("a planted fault")
+        if i == 1 and fault == "killed":
+            os.kill(os.getpid(), signal.SIGKILL)
+        if i == 1 and fault == "hangs":
+            time.sleep(3600)
+        return request(self, i)
+
+    distributed.gather_result = gather_result
+    drive.SimulateLogs.request = faulty
+from h100_bench import ranks
+ranks.main()
+"""
+
+
+def run_ranks(cell, count, seconds=0.5, trace=False, fault=None, child_fault=None,
+              stall_s=120.0, seed=2**31 + 7, timeout=300):
+    """A CPU run of a cell of several ranks, rank 0 in a process of its own,
+    one thread to a process as in a run (a step may take ``stall_s`` on a
+    CPU that other tests share): (its result line or None, its standard
+    error, its exit code, its seconds, the children's pids)."""
+    child = ([sys.executable, "-c", RANK1, child_fault] if child_fault
+             else list(ranks.CHILD))
+    args = {"cell": cell, "count": count, "seconds": seconds, "trace": trace, "fault": fault,
+            "stall_s": stall_s, "seed": seed, "child": child}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RANK0, json.dumps(args)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, **{var: "1" for var in run.THREAD_VARS}))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines else None
+    pids = [int(p) for p in re.findall(r"h100_bench: rank \d+ pid (\d+)", proc.stderr)]
+    return out, proc.stderr, proc.returncode, seconds, pids
+
+
+def gone(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
 
 
 def test_benchmark_json_keeps_its_format():
@@ -46,7 +142,9 @@ def test_benchmark_json_keeps_its_format():
         assert c["file"].startswith("h100_bench/") and os.path.exists(os.path.join(ROOT, c["file"]))
         assert any(w["config"] == c["name"] for w in BENCH["workloads"])
     for w in BENCH["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
+    # At most a quarter of the cells (rounded down) on four chips; one always may.
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(CELLS) // 4)
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     assert "setup_s" in e2e
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
@@ -99,10 +197,17 @@ def test_request_streams_repeat_from_the_seed(cell):
                                   a.formation0[:, :3][~np.isnan(a.formation0[:, :3])])
 
 
-SMALL = {"bm3_dip30.log_full": 8, "example01_2d.log_full": 12, "example01_2d.lm_step": 6}
+SMALL = {"bm3_dip30.log_full": 8, "example01_2d.log_full": 12, "example01_2d.lm_step": 6,
+         "example01_2d.ranks4": 12}
 
 
-def _run(cell, seconds=0.5, trace=False):
+def _run(cell, seconds=0.5, trace=False, fault=None):
+    """A CPU run of the cell at its small size; a cell of several ranks runs
+    through :func:`run_ranks`, with ``fault`` (a key of FAULTS) in rank 0."""
+    if "ranks" in run.cell_spec(BENCH, cell)["traffic"]:
+        out, err, code, _, _ = run_ranks(cell, SMALL[cell], seconds, trace, fault)
+        assert code == 0 and out is not None, err[-3000:]
+        return out
     return run.run(small(cell, SMALL[cell]), 2**31 + 7, seconds, trace, device="cpu",
                    t_start=time.perf_counter())
 
@@ -169,9 +274,13 @@ LM_FAULTS = {
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in FAULTS] + [
     ("example01_2d.lm_step", f) for f in LM_FAULTS])
 def test_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
-    cls = drive.ENTRIES[run.cell_spec(BENCH, cell)["traffic"]["entry"]]
-    {**FAULTS, **LM_FAULTS}[fault](monkeypatch, cls)
-    out = _run(cell, seconds=1.0)
+    spec = run.cell_spec(BENCH, cell)
+    if "ranks" in spec["traffic"]:  # planted in rank 0, whose record is the request's
+        out = _run(cell, seconds=1.0, fault=fault)
+    else:
+        cls = drive.ENTRIES[spec["traffic"]["entry"]]
+        {**FAULTS, **LM_FAULTS}[fault](monkeypatch, cls)
+        out = _run(cell, seconds=1.0)
     assert not out["correct"], out["checks"]
 
 
@@ -195,5 +304,9 @@ def test_log_tail_is_nearest_rank():
     recs = [{"wall": float(x)} for x in range(1, 21)]
     assert read({"records": recs}) == 19.0
     assert read({"records": recs[:1]}) == 1.0
+    # The four-card cell's tail, per layer: the traced logs left out.
+    untraced = run.reader("layers", "log_wall_p95.ranks4")
+    assert untraced({"records": recs, "traced": recs[1:3]}) == 20.0
+    assert untraced({"records": recs, "traced": recs[18:20]}) == 18.0
     assert math.isclose(run.reader("end_to_end", "readouts_per_s.3d")(
         {"records": [{"work": 100, "failed": False}] * 3, "window_s": 6.0}), 50.0)

@@ -9,7 +9,7 @@ import time
 import pytest
 
 from h100_bench import spans
-from h100_bench.tests.test_h100_bench_harness import CELLS, SMALL, small
+from h100_bench.tests.test_h100_bench_harness import CELLS, SMALL, run_ranks, small
 from h100_bench.trace import Stretch
 
 Span = collections.namedtuple("Span", "id parent request name thread start_ns end_ns")
@@ -75,7 +75,11 @@ def test_the_readers_divide_by_the_traced_requests(monkeypatch):
 def test_a_cpu_run_of_each_cell_leaves_the_new_metrics_out(cell):
     from h100_bench import run
 
-    out = run.run(small(cell, SMALL[cell]), 2**31 + 11, 0.3, True, device="cpu",
-                  t_start=time.perf_counter())
+    spec = small(cell, SMALL[cell])
+    if "ranks" in spec["traffic"]:  # its ranks, rank 0 in a process of its own
+        out, err, code, _, _ = run_ranks(cell, SMALL[cell], 0.3, True, seed=2**31 + 11)
+        assert code == 0 and out is not None, err[-3000:]
+    else:
+        out = run.run(spec, 2**31 + 11, 0.3, True, device="cpu", t_start=time.perf_counter())
     assert out["correct"]
     assert not set(NEW) & set(out["metrics"])
