@@ -1,16 +1,20 @@
 # -*- coding: utf-8 -*-
-"""ctypes bindings of the repo's native C++ grid builders (``native/grid2d.cpp``,
-``native/grid3d.cpp``, ``native/grid_common.h``).
+"""ctypes bindings of the port's native C++ grid builders: the repo's 2D
+builder (``native/grid2d.cpp``, ``native/grid_common.h``) and the port's own 3D
+builder (``csrc/grid3d_native.cpp``).
 
-The counterpart of ``remo3d_tpu.meshing.native``. The sources are shared with
-the JAX package and only read here: g++ compiles them with the JAX loader's
-flags (so both packages' native grids are bitwise equal) into a plain C shared
-library under ``remo3d_tpu_torch/_build/``, named by a hash of the sources and
-flags. A build goes to a private name first and is renamed into place, so two
-processes that build at once never load a half-written library. The numpy
-builders (``grid2d.build_grid2d``, ``grid3d.build_grid3d``) are the reference
-specification; the executor falls back to them, with a warning, when no
-toolchain is there.
+The counterpart of ``remo3d_tpu.meshing.native``. The sources under ``native/``
+are shared with the JAX package and only read here. ``csrc/grid3d_native.cpp``
+is ``native/grid3d.cpp`` with the thin-annulus anchors of
+``GridSpec3D.fz_h_radial`` added, exported as ``build_grid3d_native_fz``
+(``fz_h_radial`` NaN for none). g++ compiles them with the JAX loader's flags
+(so both packages' native grids are bitwise equal where neither refines an
+annulus) into a plain C shared library under ``remo3d_tpu_torch/_build/``,
+named by a hash of the sources and flags. A build goes to a private name first
+and is renamed into place, so two processes that build at once never load a
+half-written library. The numpy builders (``grid2d.build_grid2d``,
+``grid3d.build_grid3d``) are the reference specification; the executor falls
+back to them, with a warning, when no toolchain is there.
 """
 
 from __future__ import annotations
@@ -27,11 +31,11 @@ import numpy as np
 
 from .carve import LocalModel
 from .grid2d import Grid2D, GridSpec2D
-from .grid3d import Grid3D, GridSpec3D, build_grid3d
+from .grid3d import THIN_ANNULUS_MIN_CELLS, Grid3D, GridSpec3D
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 NATIVE_DIR = PACKAGE_DIR.parent / "native"
-SOURCES = [NATIVE_DIR / "grid2d.cpp", NATIVE_DIR / "grid3d.cpp"]
+SOURCES = [NATIVE_DIR / "grid2d.cpp", PACKAGE_DIR / "csrc" / "grid3d_native.cpp"]
 HEADER = NATIVE_DIR / "grid_common.h"
 BUILD_DIR = PACKAGE_DIR / "_build"
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -65,7 +69,7 @@ def _build_and_load() -> ctypes.CDLL:
             os.replace(so, out)
     lib = ctypes.CDLL(str(out))
     lib.build_grid2d_native.restype = ctypes.c_int
-    lib.build_grid3d_native.restype = ctypes.c_int
+    lib.build_grid3d_native_fz.restype = ctypes.c_int
     return lib
 
 
@@ -178,13 +182,8 @@ def build_grid3d_native(
     electrode_positions: np.ndarray,
     source_positions: np.ndarray,
 ) -> Grid3D:
-    """Native counterpart of :func:`remo3d_tpu_torch.meshing.grid3d.build_grid3d`.
-
-    The C ABI has no anchor-local thin-annulus refinement: a spec with
-    ``fz_h_radial`` set is built by the numpy builder, as in the JAX package."""
-    if spec.fz_h_radial is not None:
-        return build_grid3d(spec, domain_radius, local_model, dip_rad,
-                            electrode_positions, source_positions)
+    """Native counterpart of :func:`remo3d_tpu_torch.meshing.grid3d.build_grid3d`,
+    the thin-annulus anchors of ``spec.fz_h_radial`` included."""
     lib = _load()
     if lib is None:
         raise RuntimeError(f"native grid builder unavailable: {_lib_error}")
@@ -192,7 +191,8 @@ def build_grid3d_native(
     coords = np.empty((spec.nz, spec.np_, spec.nr, 3), dtype=float)
     sigma = np.empty((spec.nz - 1, spec.np_ - 1, spec.nr - 1), dtype=float)
     z_axis = np.empty((spec.nz,), dtype=float)
-    ret = lib.build_grid3d_native(
+    fz_h = np.nan if spec.fz_h_radial is None else spec.fz_h_radial
+    ret = lib.build_grid3d_native_fz(
         ctypes.c_double(domain_radius),
         ctypes.c_int(spec.nz), ctypes.c_int(spec.np_), ctypes.c_int(spec.nr),
         ctypes.c_int(spec.n_wall_cells), ctypes.c_int(spec.n_blend_cells),
@@ -200,6 +200,7 @@ def build_grid3d_native(
         ctypes.c_double(spec.shear_cap_frac),
         ctypes.c_double(float(np.tan(dip_rad))),
         ctypes.c_int(_SIGMA_BLEND_CODES[spec.sigma_blend]),
+        ctypes.c_double(fz_h), ctypes.c_double(THIN_ANNULUS_MIN_CELLS),
         *_model_args(arrays),
         ctypes.c_double(local_model.mud_sigma),
         _dptr(coords), _dptr(sigma), _dptr(z_axis),

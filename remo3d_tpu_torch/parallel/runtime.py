@@ -457,12 +457,14 @@ class LazyGrids:
     """Sequence of per-batch grids, built on first access and cached.
 
     Supports int and slice indexing and iteration, so eager-list call sites work
-    unchanged, and :meth:`ensure` builds a range ahead of use.
+    unchanged, and :meth:`ensure` builds a range ahead of use. ``built`` holds
+    the indices of the grids built so far.
     """
 
     def __init__(self, n: int, build_one):
         self._build = build_one
         self._cache: list = [None] * n
+        self.built: set[int] = set()
 
     def __len__(self) -> int:
         return len(self._cache)
@@ -472,6 +474,7 @@ class LazyGrids:
         for i in range(max(start, 0), stop):
             if self._cache[i] is None:
                 self._cache[i] = self._build(i)
+                self.built.add(i)
 
     def __getitem__(self, i):
         if isinstance(i, slice):
@@ -633,8 +636,7 @@ class Executor:
             _warn_numpy_fallback()
         if dip_rad != 0:
             builder = build_grid3d_native if native else build_grid3d
-            fz_refined = self.config.spec3d.fz_h_radial is not None  # numpy either way
-            self.mesher = "native" if native and not fz_refined else "numpy"
+            self.mesher = "native" if native else "numpy"
         elif self.config.device_meshing:
             builder = build_grid2d_light
             self.mesher = "device"
@@ -785,6 +787,10 @@ class Executor:
         and reads out only its share; every rank returns the full results, and
         the failure counts of ``last_report`` are summed over the ranks (its
         per-chunk rows are this rank's).
+
+        ``last_report["grids"]`` counts the grids this rank built in the run,
+        all by ``last_report["mesher"]``; each chunk's row counts those of its
+        own batches.
         """
         cfg = self.config
         dtype = np.dtype(cfg.dtype).type
@@ -840,12 +846,17 @@ class Executor:
                         print(f"  resuming: {len(done_chunks)} chunks already done")
         self.last_report["resumed_chunks"] = len(done_chunks)
 
+        built = getattr(grids, "built", set())
+
+        def lanes_of(start):
+            """The batch indices of this rank's share of the chunk at ``start``."""
+            return range(min(start + lane0, B_total), min(start + lane0 + lanes, B_total))
+
         def share(start):
             """This rank's batch tasks and grids of the chunk at ``start``, and
             the grid its padded lanes copy (the chunk's first)."""
-            lo = min(start + lane0, B_total)
-            hi = min(start + lane0 + lanes, B_total)
-            return tasks[lo:hi], grids[lo:hi], grids[start]
+            idx = lanes_of(start)
+            return tasks[idx.start:idx.stop], grids[idx.start:idx.stop], grids[start]
 
         def stage_sources(batch_tasks, batch_grids, B):
             src_i = np.zeros((B, slots, MAX_SOURCES), dtype=np.int64)
@@ -1059,6 +1070,7 @@ class Executor:
                         "iterations": iters,
                         "worst_residual": worst,
                         "failed_solves": n_failed,
+                        "grids": sum(b in built for b in lanes_of(start)),
                         **graph,
                     }
                 )
@@ -1089,6 +1101,7 @@ class Executor:
         if verbose:
             print()
         results = distributed.gather_result(results, owned)
+        self.last_report["grids"] = len(built)
         self.last_report["n_failed_solves"], self.last_report["n_nan_readouts"] = (
             distributed.sum_over_ranks([n_failed_total, n_nan_total]))
         return results

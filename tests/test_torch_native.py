@@ -1,11 +1,14 @@
 # -*- coding: utf-8 -*-
-"""The port's native mesher (``remo3d_tpu_torch/meshing/native.py``): the C++
-builders of ``native/`` against the port's numpy builders, with the JAX
-package's limits (tests/test_grid.py: coordinates within 1e-10, masks and 2D
-conductivities equal, 3D conductivities within 1e-9 relative); bitwise against
-``remo3d_tpu.meshing.native`` on the same inputs; the thin-annulus delegation
-to numpy; and the executor's choice of builder. The 3D ``Model`` log with
-native meshing on both sides is in tests/test_torch_model3d.py."""
+"""The port's native mesher (``remo3d_tpu_torch/meshing/native.py``): its C++
+builders (``native/grid2d.cpp``, ``csrc/grid3d_native.cpp``) against the port's
+numpy builders, with the JAX package's limits (tests/test_grid.py: coordinates
+within 1e-10, masks and 2D conductivities equal, 3D conductivities within 1e-9
+relative); bitwise against ``remo3d_tpu.meshing.native`` on the same inputs;
+the thin-annulus grids (``GridSpec3D.fz_h_radial``) against numpy too; and the
+executor's choice of builder. The 3D ``Model`` log with native meshing on both
+sides is in tests/test_torch_model3d.py."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -31,6 +34,11 @@ ELECTRODES = np.array([-2.5, -2.0, 0.0, 0.4])
 SOURCES = np.array([-0.1, 0.0, 0.1])
 SPEC2 = dict(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2)
 SPEC3 = dict(nz=97, np_=9, nr=33, n_wall_cells=4, n_blend_cells=2)
+# Invaded rows for the thin-annulus grids: 0.2 m lies within
+# THIN_ANNULUS_MIN_CELLS * h_min_radial (0.12 m) of the 0.12 m wall, 0.5 m
+# does not.
+THIN_ROW = [-1.0, 0.0, 0.2, 4.0, 20.0]
+THICK_ROW = [0.0, 1.0, 0.5, 5.0, 30.0]
 BLENDS = ["arithmetic", "centroid", "harmonic", "mixed"]
 
 pytestmark = pytest.mark.skipif(not tnative.native_available(), reason="no g++ to build the native mesher")
@@ -76,7 +84,9 @@ def test_native_grid3d_matches_numpy(dip_deg, blend):
 
 @pytest.mark.parametrize("dim", ["2D", "3D dip 30", "3D dip 60 mixed"])
 def test_native_grids_bitwise_equal_jax(dim):
-    """The same sources and flags give the JAX loader's grids bit for bit."""
+    """The port's builds give the JAX loader's grids bit for bit: the shared
+    2D source, and the port's 3D source without ``fz_h_radial`` against
+    ``native/grid3d.cpp``."""
     if dim == "2D":
         lm = local_model()
         t = tnative.build_grid2d_native(GridSpec2D(**SPEC2), 50.0, lm, ELECTRODES, SOURCES)
@@ -96,25 +106,41 @@ def test_native_grids_bitwise_equal_jax(dim):
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8), err_msg=field)
 
 
-def test_fz_h_radial_delegates_to_numpy():
-    """A spec with the thin-annulus anchor spacing is built by the numpy
-    builder (the C ABI has no such refinement), and the executor says so."""
-    lm = local_model(30)
-    dip = np.deg2rad(30)
-    spec = GridSpec3D(**SPEC3, fz_h_radial=0.0125)
+THIN_CASES = [(dip, blend, anchors, SPEC3) for dip in (1e-3, 30, 60) for blend in BLENDS
+              for anchors in ("thin", "thin and thick")] + [
+    (60, "arithmetic", "thin and thick", dict(nz=257, np_=25, nr=65))]
+
+
+@pytest.mark.parametrize("dip_deg,blend,anchors,shape", THIN_CASES)
+def test_native_thin_annulus_grid3d_matches_numpy(dip_deg, blend, anchors, shape):
+    """A spec with the thin-annulus anchor spacing is built natively (the
+    ``build_grid3d_native_fz`` symbol) to the grid of numpy's ``build_grid3d``: thin
+    invasion radii anchored at ``fz_h_radial``, the others at
+    ``h_min_radial``; the last case is bm2_dip60's 257x25x65 high-dip spec."""
+    rows = [THIN_ROW, THICK_ROW] if anchors == "thin and thick" else [
+        THIN_ROW, THICK_ROW[:2] + [np.nan, np.nan, 30.0]]
+    formation = np.array([[-100.0, -1.0, np.nan, np.nan, 10.0], *rows,
+                          [1.0, 100.0, np.nan, np.nan, 8.0]])
+    borehole = np.array([[-100.0, 0.12], [100.0, 0.12]])
+    dip = np.deg2rad(dip_deg)
+    lm = carve_local_model(formation, borehole, 1.1, 0.0, 50.0, dip_rad=dip)
+    assert lm.invasion_radii.size == len(anchors.split(" and "))
+    spec = GridSpec3D(**shape, sigma_blend=blend, fz_h_radial=0.025)
     g_c = tnative.build_grid3d_native(spec, 50.0, lm, dip, ELECTRODES, SOURCES)
     g_py = build_grid3d(spec, 50.0, lm, dip, ELECTRODES, SOURCES)
-    for field in ("z_axis", "coords", "sigma_cells", "free_mask"):
-        np.testing.assert_array_equal(getattr(g_c, field), getattr(g_py, field), err_msg=field)
-    ex = runtime.Executor(runtime.ExecutorConfig(device="cpu", spec3d=spec))
-    ex.prepare_batches([], FORMATION, np.array([[-100.0, 0.12], [100.0, 0.12]]), np.ones(1),
-                       50.0, dip, 0.99)
-    assert ex.mesher == "numpy"
+    g_plain = build_grid3d(dataclasses.replace(spec, fz_h_radial=None), 50.0, lm, dip,
+                           ELECTRODES, SOURCES)
+    assert not np.allclose(g_py.coords, g_plain.coords)  # the thin anchor moved the stations
+    assert np.allclose(g_py.z_axis, g_c.z_axis, atol=1e-10)
+    assert np.allclose(g_py.coords, g_c.coords, atol=1e-10)
+    assert np.allclose(g_py.sigma_cells, g_c.sigma_cells, rtol=1e-9, atol=0)
+    assert np.array_equal(g_py.free_mask, g_c.free_mask)
 
 
 @pytest.mark.parametrize("dip,overrides,mesher", [
     (0.5, {}, "native"),
     (0.5, {"use_native_mesher": False}, "numpy"),
+    (0.5, {"spec3d": GridSpec3D(**SPEC3, fz_h_radial=0.0125)}, "native"),
     (0.0, {"device_meshing": False}, "native"),
     (0.0, {"device_meshing": False, "use_native_mesher": False}, "numpy"),
     (0.0, {"device_meshing": True}, "device"),

@@ -245,3 +245,41 @@ def test_the_phases_of_a_log_are_those_of_its_spans(window):
     for name, seconds in phases.items():
         recorded = sum(s.end_ns - s.start_ns for s in spans if s.name == name) / 1e9
         assert recorded == pytest.approx(seconds, rel=1e-9, abs=1e-9), name
+
+
+THIN_FORMATION = np.array([
+    [-100.0, -1.0, np.nan, np.nan, 10.0],
+    [-1.0, 1.0, 0.2, 5.0, 100.0],  # 0.1 m of annulus past the wall: thin
+    [1.0, 100.0, np.nan, np.nan, 10.0],
+])
+
+
+@pytest.mark.parametrize("case,builder", [("2D", "native"), ("2D device meshing", "device"),
+                                          ("3D thin annulus", "native")])
+def test_the_grids_of_a_log_are_counted(case, builder):
+    """``last_report["grids"]`` counts one grid per batch of the plan, all by
+    ``last_report["mesher"]``, one "mesh" / "mesh_ahead" span each, and the
+    chunks' rows count their own batches' grids."""
+    from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
+    from remo3d_tpu_torch.planner import plan_tasks
+
+    m = Model(TOOLS)
+    is3d = case.startswith("3D")
+    m.set_model_parameters(THIN_FORMATION if is3d else FORMATION, BOREHOLE,
+                           borehole_geometry_type="radius", dip=60 if is3d else 0)
+    depths = DEPTHS[:4] if is3d else DEPTHS
+    overrides = {"chunk_size_3d" if is3d else "chunk_size": 2,
+                 "device_meshing": case.endswith("device meshing")}
+    grid = ({"grid_spec3d": GridSpec3D(nz=33, np_=5, nr=17, n_wall_cells=3, n_blend_cells=2,
+                                       fz_h_radial=0.025), "batch_size": 2}
+            if is3d else {"grid_spec": GRID, "batch_size": 1})
+    before = span_snapshot()
+    with cpu_profile():
+        m.simulate_logs(depths, device="cpu", verbose=False, executor_overrides=overrides,
+                        **grid)
+    report = m.last_report
+    n_batches = len(plan_tasks(m.tools, m.sec, depths, grid["batch_size"])[1])
+    assert report["mesher"] == builder and report["grids"] == n_batches
+    assert [c["grids"] for c in report["chunks"]] == [c["batches"] for c in report["chunks"]]
+    meshes = [s for s in new_spans(before) if s.name in ("mesh", "mesh_ahead")]
+    assert len(meshes) == n_batches
