@@ -115,7 +115,10 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
     solve axis; the 3D chunk's z, p and r lines), each timed against its
     bound and the plain version, with registers, shared memory, resident
     blocks per SM and the tile plan (lines per tile, cluster, segment,
-    coefficient stages);
+    coefficient stages); and the 3D ADI sweep's damped step at both 3D
+    benchmark cells' chunks, per line direction: K3 with its step epilogue
+    (in place) and the axis tie against K3 and the step's torch ops,
+    bit-equal off the axis column, each timed;
 31. phase 4's 2D log with K3 off, on, on with the CG loop op by op, and off
     again (``ops.lines.PCR_KERNEL``): K3 on against off within LOG_REL, CG
     iterations per chunk within 1, K3 launched in every CG iteration with it
@@ -2596,6 +2599,85 @@ def check_k3(torch, card):
     return rows
 
 
+# Phase 30: the ADI sweep's damped step at both 3D cells' chunks (the
+# benchmark's bm2_dip60 and bm3_dip30: 8 batches of 5 solves).
+K3_STEP_SHAPES = [(8, 5, 257, 25, 65), (8, 5, 193, 17, 49)]
+K3_STEP_SCALE = 0.6  # the sweep's adi_damp
+
+
+def check_k3_step(torch, card):
+    """Phase 30: the sweep's damped step z <- z + w P(T^-1 res) at
+    :data:`K3_STEP_SHAPES`, per line direction, float32: K3 with the step
+    epilogue writing z in place, then the tie of the axis column
+    (``pole_tie_``), against the unfused step (K3, the projection's copy, the
+    scalar multiply and the add): bit-equal off the axis column, within
+    TOL_POLE of max|z| on it. Each timed (median of 25 CUDA-event timings,
+    interleaved), with the fused launch alone and K3 alone beside them, and
+    the epilogue's registers. Returns a row per shape and direction."""
+    from remo3d_tpu_torch.kernels import pcr_lines
+    from remo3d_tpu_torch.ops.lines import pcr_factor_stacked
+    from remo3d_tpu_torch.ops.stencil3d import pole_project, pole_tie_
+
+    rng = np.random.default_rng(2026)
+    w = K3_STEP_SCALE
+    rows, faults = [], []
+    for B, S, *grid in K3_STEP_SHAPES:
+        for d, axis in (("z", -3), ("p", -2), ("r", -1)):
+            shape = (B, *grid)
+            dl, du = -rng.uniform(0.1, 1.0, shape), -rng.uniform(0.1, 1.0, shape)
+            dd = -(dl + du) + rng.uniform(0.05, 0.5, shape)
+            F = pcr_factor_stacked(*(torch.as_tensor(a, device="cuda").float() for a in (dl, dd, du)),
+                                   axis=axis, stack_dim=1)
+            del dl, du, dd
+            res = torch.randn((B, S, *grid), device="cuda")
+            z0 = pole_project(torch.randn((B, S, *grid), device="cuda"))
+
+            def unfused():
+                return z0 + w * pole_project(pcr_lines.pcr_apply_lines(F, res, axis))
+
+            z = z0.clone()
+
+            def fused():
+                return pole_tie_(pcr_lines.pcr_apply_lines(F, res, axis, scale=w, base=z, out=z))
+
+            ref, got = unfused(), fused()
+            torch.cuda.synchronize()
+            off_axis = torch.equal(got[..., 1:], ref[..., 1:])
+            rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            times = {"unfused": [], "fused": [], "fused_k3": [], "k3": []}
+            fns = {"unfused": unfused, "fused": fused,
+                   "fused_k3": lambda: pcr_lines.pcr_apply_lines(F, res, axis, scale=w, base=z,
+                                                                 out=z),
+                   "k3": lambda: pcr_lines.pcr_apply_lines(F, res, axis)}
+            for fn in fns.values():  # warm-up (z drifts; only the timings follow)
+                fn()
+            for _ in range(25):
+                for key, fn in fns.items():
+                    times[key].append(time_ms(torch, fn))
+            ms = {k: float(np.median(v)) for k, v in times.items()}
+            L = (F.shape[1] - 1) // 2
+            info = pcr_lines.kernel_info(B, S, grid, axis, L, torch.float32, step=True)
+            label = f"({B},{S},{'x'.join(map(str, grid))}) {d}"
+            rows.append({"shape": label, "axis": axis, "off_axis_bit_equal": off_axis,
+                         "rel_err": rel, **{f"{k}_ms": v for k, v in ms.items()},
+                         "registers": info["registers"], "spill_bytes": info["spill_bytes"],
+                         "cluster": info["cluster"]})
+            log(f"K3 step {label}: fused (K3 with the epilogue, in place, + the axis tie) "
+                f"{ms['fused']:.4f} ms against unfused (K3 + copy + multiply + add) "
+                f"{ms['unfused']:.4f} ms ({ms['unfused'] / ms['fused']:.2f}x); the fused launch "
+                f"{ms['fused_k3']:.4f} ms, K3 alone {ms['k3']:.4f} ms; off the axis column "
+                f"bit-equal {off_axis}, max|fused-unfused| / max|z| {rel:.3e}; epilogue "
+                f"{info['registers']} registers, {info['spill_bytes']} B spilled, cluster "
+                f"{info['cluster']} ({card})")
+            if not (off_axis and rel <= TOL_POLE["float32"]):
+                faults.append(f"step {label}: off-axis equal {off_axis}, rel {rel:.3e}")
+            del F, res, z0, z, ref, got
+            torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("K3 step: " + "; ".join(faults))
+    return rows
+
+
 def k3_off(fn):
     """``fn()`` with K3 off (``ops.lines.PCR_KERNEL``): the line solves
     through the plain ``pcr_apply`` on the card."""
@@ -2657,6 +2739,7 @@ def k3_on_off(torch, card, label, make_log, readouts, rel_gate, per_iteration) -
 def run_k3(torch, card) -> dict:
     """Phases 30-32."""
     rows = check_k3(torch, card)  # 30
+    steps = check_k3_step(torch, card)
     logs = {
         "2d": k3_on_off(torch, card, "2D log (phase 31)", lambda: log_2d(torch, DEPTHS),
                         readouts_2d, LOG_REL, 2),
@@ -2664,7 +2747,7 @@ def run_k3(torch, card) -> dict:
                         lambda: log_3d(torch, DEPTHS_3D, device="cuda", dtype="float32"),
                         lambda m: m.logs[TOOLS_3D[0]][:, 1], LOG3D_REL_PAIR, 5),
     }
-    return {"shapes": rows, "logs": logs}
+    return {"shapes": rows, "steps": steps, "logs": logs}
 
 
 def check_checkout(torch):
@@ -2843,6 +2926,7 @@ def main() -> int:
                                              "tile_rows", "blocks_per_sm", "TO", "TI",
                                              "cluster", "seg", "stages")}
                     for r in k3_run["shapes"]]
+    k3["steps"] = k3_run["steps"]
 
     log("kernel resources at the main shapes: " + json.dumps(results["3-6"]["info"]))
     log(card)

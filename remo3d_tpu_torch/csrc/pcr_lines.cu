@@ -89,6 +89,21 @@
 // A term outside the line is dropped, not multiplied by zero, so a solve that
 // holds Inf or NaN spreads it only where the plain version does.
 //
+// The step epilogue (STEP, entry points pcr_lines_step_*): the 3D ADI sweep's
+// damped update z + w T^{-1} res in the same launch. The kernel writes
+// base + scale (x dinv), or scale (x dinv) without base, each product and sum
+// rounded on its own in that order (the sweep's torch ops z + w * y, with the
+// float64 w rounded once to T). After the barrier before the dinv step, each
+// thread copies base of its own nodes (cp.async) into the x buffer that the
+// last level read, which no thread reads any more, and reads only those
+// copies back: it reads base at the addresses it then writes, so x may alias
+// base (the sweep updates z in place), across a cluster too. The launch
+// without the epilogue is its own instantiation, with the code above.
+// Measured (chip_smoke.py phase 30, float32, the 3D benchmark cells' chunks
+// (8, 5, 257x25x65) and (8, 5, 193x17x49)): the launch 8-19% slower than
+// without the epilogue, the sweep's step 1.3-1.6x faster than K3 followed by
+// the projection's copy, the multiply and the add.
+//
 // Probe builds (chip_smoke.py --probe), wrong results on purpose:
 // -DREMO3D_K3_PROBE=1 loads no coefficient (constants in their place),
 // -DREMO3D_K3_PROBE=2 drops the barrier between levels (the barriers after
@@ -209,13 +224,22 @@ __device__ __forceinline__ void cp_async_wait_pending(int pending) {
   }
 }
 
+// The step epilogue's arguments: base (B, S, grid), nullptr for none, and
+// the scale.
+template <typename T>
+struct Step {
+  const T* base;
+  T scale;
+};
+
 // RUN: the tile is whole lines with all of inner, one run of each plane (no
 // cluster); else rows of the tile's lines along inner, split over the
 // cluster's blocks (a cluster launch, of one block where the plan has none).
-template <typename T, bool RUN>
+// STEP: x = e.base + e.scale (x dinv) (the step epilogue, above); else x dinv.
+template <typename T, bool RUN, bool STEP>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 pcr_lines_kernel(const T* __restrict__ F, const T* __restrict__ b, T* __restrict__ x,
-                 const Lines s, const Plan p) {
+                 const Lines s, const Plan p, const Step<T> e) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tid = threadIdx.x;
   constexpr bool CLUSTERED = !RUN;
@@ -420,6 +444,19 @@ pcr_lines_kernel(const T* __restrict__ F, const T* __restrict__ b, T* __restrict
   // block may finish and exit.
   cp_async_wait_pending(0);
   level_sync(s.L);
+  // The step's base, this thread's nodes, into the buffer the last level read
+  // (a prefetch of it into L2 at the kernel's start measured 2-5% slower).
+  const bool has_base = STEP && e.base != nullptr;
+  if (has_base) {
+    const T* eb = e.base + static_cast<long long>(batch) * s.S * N;
+    Walk w = w0;
+    for (int q = tid; q < nodes; q += kThreads, advance(w, d)) {
+      const int off = offset(q, w);
+      for (int g = 0; g < s.S; ++g) slab::cp_async<sizeof(T)>(nxt + g * xcap + q, eb + g * N + off);
+    }
+    slab::cp_async_commit();
+    slab::cp_async_wait_group<0>();
+  }
   const T* cd = slot_of(s.L, 0);
   Walk w = w0;
   for (int q0 = tid; q0 < nodes; q0 += kUnroll * kThreads) {
@@ -442,9 +479,24 @@ pcr_lines_kernel(const T* __restrict__ F, const T* __restrict__ b, T* __restrict
       for (int u = 0; u < kUnroll; ++u) {
         v[u] = q0 + u * kThreads < nodes ? cur[g * xcap + q0 + u * kThreads] : T(0);
       }
+      if constexpr (STEP) {
+        T z[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (q0 + u * kThreads < nodes) xb[g * N + off[u]] = mul_rn(v[u], dv[u]);
+        for (int u = 0; u < kUnroll; ++u) {
+          z[u] = has_base && q0 + u * kThreads < nodes ? nxt[g * xcap + q0 + u * kThreads] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (q0 + u * kThreads < nodes) {
+            const T y = mul_rn(e.scale, mul_rn(v[u], dv[u]));
+            xb[g * N + off[u]] = has_base ? add_rn(z[u], y) : y;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (q0 + u * kThreads < nodes) xb[g * N + off[u]] = mul_rn(v[u], dv[u]);
+        }
       }
     }
   }
@@ -495,9 +547,9 @@ bool read_args(int B, int S, int outer, int n, int inner, int LF, const int* pla
   return true;
 }
 
-template <typename T>
-int launch(const void* F, const void* b, void* x, int B, int S, int outer, int n, int inner,
-           int LF, const int* plan, void* stream) {
+template <typename T, bool STEP>
+int launch(const void* F, const void* b, void* x, const Step<T> e, int B, int S, int outer,
+           int n, int inner, int LF, const int* plan, void* stream) {
   Lines s;
   Plan p;
   if (!read_args(B, S, outer, n, inner, LF, plan, s, p) || !check_plan<T>(B, s, p)) {
@@ -508,14 +560,14 @@ int launch(const void* F, const void* b, void* x, int B, int S, int outer, int n
   const T* bp = static_cast<const T*>(b);
   T* xp = static_cast<T*>(x);
   if (whole_runs(p)) {
-    cudaError_t err = slab::allow_smem(pcr_lines_kernel<T, true>, p.smem);
+    cudaError_t err = slab::allow_smem(pcr_lines_kernel<T, true, STEP>, p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    pcr_lines_kernel<T, true><<<blocks, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
-        Fp, bp, xp, s, p);
+    pcr_lines_kernel<T, true, STEP>
+        <<<blocks, kThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(Fp, bp, xp, s, p, e);
     return static_cast<int>(cudaGetLastError());
   }
   // Rows: a cluster launch, of one block where the plan has no cluster.
-  cudaError_t err = slab::allow_smem(pcr_lines_kernel<T, false>, p.smem);
+  cudaError_t err = slab::allow_smem(pcr_lines_kernel<T, false, STEP>, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
@@ -529,12 +581,12 @@ int launch(const void* F, const void* b, void* x, int B, int S, int outer, int n
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pcr_lines_kernel<T, false>, Fp, bp, xp, s, p);
+  err = cudaLaunchKernelEx(&cfg, pcr_lines_kernel<T, false, STEP>, Fp, bp, xp, s, p, e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool STEP>
 int info(int B, int S, int outer, int n, int inner, int LF, const int* plan, int* out) {
   Lines s;
   Plan p;
@@ -545,8 +597,8 @@ int info(int B, int S, int outer, int n, int inner, int LF, const int* plan, int
   st.TZ = p.TO * p.TI;  // lines per tile
   st.G = S;
   st.smem = static_cast<size_t>(p.smem);
-  return whole_runs(p) ? slab::kernel_info(pcr_lines_kernel<T, true>, kThreads, st, out)
-                       : slab::kernel_info(pcr_lines_kernel<T, false>, kThreads, st, out);
+  return whole_runs(p) ? slab::kernel_info(pcr_lines_kernel<T, true, STEP>, kThreads, st, out)
+                       : slab::kernel_info(pcr_lines_kernel<T, false, STEP>, kThreads, st, out);
 }
 
 }  // namespace REMO3D_K3_CAT(build, REMO3D_K3_PROBE)
@@ -554,27 +606,54 @@ int info(int B, int S, int outer, int n, int inner, int LF, const int* plan, int
 
 using REMO3D_K3_CAT(build, REMO3D_K3_PROBE)::launch;
 using REMO3D_K3_CAT(build, REMO3D_K3_PROBE)::info;
+using REMO3D_K3_CAT(build, REMO3D_K3_PROBE)::Step;
 
 // plan: the 8 ints of kernels/pcr_lines.py PLAN_FIELDS, checked, never replaced.
 extern "C" int pcr_lines_f32(const void* F, const void* b, void* x, int B, int S, int outer,
                              int n, int inner, int L, const int* plan, void* stream) {
-  return launch<float>(F, b, x, B, S, outer, n, inner, L, plan, stream);
+  return launch<float, false>(F, b, x, {nullptr, 0.0f}, B, S, outer, n, inner, L, plan, stream);
 }
 
 extern "C" int pcr_lines_f64(const void* F, const void* b, void* x, int B, int S, int outer,
                              int n, int inner, int L, const int* plan, void* stream) {
-  return launch<double>(F, b, x, B, S, outer, n, inner, L, plan, stream);
+  return launch<double, false>(F, b, x, {nullptr, 0.0}, B, S, outer, n, inner, L, plan, stream);
+}
+
+// The step epilogue: x = base + scale T^{-1} b (base may be x itself, or
+// null: x = scale T^{-1} b); scale is rounded to the solve's type once.
+extern "C" int pcr_lines_step_f32(const void* F, const void* b, void* x, const void* base,
+                                  double scale, int B, int S, int outer, int n, int inner, int L,
+                                  const int* plan, void* stream) {
+  const Step<float> e{static_cast<const float*>(base), static_cast<float>(scale)};
+  return launch<float, true>(F, b, x, e, B, S, outer, n, inner, L, plan, stream);
+}
+
+extern "C" int pcr_lines_step_f64(const void* F, const void* b, void* x, const void* base,
+                                  double scale, int B, int S, int outer, int n, int inner, int L,
+                                  const int* plan, void* stream) {
+  const Step<double> e{static_cast<const double*>(base), scale};
+  return launch<double, true>(F, b, x, e, B, S, outer, n, inner, L, plan, stream);
 }
 
 // What a launch of B batches of S solves on lines (outer, n, inner) with L
 // levels and this plan would use (slab::kernel_info; its tile height is the
-// lines per tile).
+// lines per tile), without the step epilogue and with it.
 extern "C" int pcr_lines_info_f32(int B, int S, int outer, int n, int inner, int L,
                                   const int* plan, int* out) {
-  return info<float>(B, S, outer, n, inner, L, plan, out);
+  return info<float, false>(B, S, outer, n, inner, L, plan, out);
 }
 
 extern "C" int pcr_lines_info_f64(int B, int S, int outer, int n, int inner, int L,
                                   const int* plan, int* out) {
-  return info<double>(B, S, outer, n, inner, L, plan, out);
+  return info<double, false>(B, S, outer, n, inner, L, plan, out);
+}
+
+extern "C" int pcr_lines_step_info_f32(int B, int S, int outer, int n, int inner, int L,
+                                       const int* plan, int* out) {
+  return info<float, true>(B, S, outer, n, inner, L, plan, out);
+}
+
+extern "C" int pcr_lines_step_info_f64(int B, int S, int outer, int n, int inner, int L,
+                                       const int* plan, int* out) {
+  return info<double, true>(B, S, outer, n, inner, L, plan, out);
 }

@@ -45,6 +45,10 @@ ENTRY_POINTS = {
     # n, inner) with the wrapper's tile plan
     "pcr_lines_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _PLAN, _P],
     "pcr_lines_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _PLAN, _P],
+    # (F, b, x, base, scale, B, S, outer, n, inner, L, plan, stream): K3 with
+    # the step epilogue, x = base + scale T^-1 b (base may be null or x)
+    "pcr_lines_step_f32": [_P, _P, _P, _P, ctypes.c_double, _I, _I, _I, _I, _I, _I, _PLAN, _P],
+    "pcr_lines_step_f64": [_P, _P, _P, _P, ctypes.c_double, _I, _I, _I, _I, _I, _I, _PLAN, _P],
     # (S, NR, tile_rows, out) / (S, NP, NR, tile_rows, out) / (B, S, outer,
     # n, inner, L, plan, out): what a launch would use, see kernel_info
     "stencil2d_half_info_f32": [_I, _I, _I, _INFO],
@@ -53,6 +57,8 @@ ENTRY_POINTS = {
     "stencil3d_half_info_f64": [_I, _I, _I, _I, _INFO],
     "pcr_lines_info_f32": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
     "pcr_lines_info_f64": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
+    "pcr_lines_step_info_f32": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
+    "pcr_lines_step_info_f64": [_I, _I, _I, _I, _I, _I, _PLAN, _INFO],
 }
 INFO_FIELDS = ("registers", "spill_bytes", "smem_bytes", "tile_rows", "solves_per_group",
                "blocks_per_sm")

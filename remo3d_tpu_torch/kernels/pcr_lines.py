@@ -36,6 +36,11 @@ coefficients keep the solve's dtype (the Pallas kernels stored them in
 bfloat16), and every product and sum is rounded on its own in the plain
 version's order.
 
+With ``scale`` (and ``base``) the same launch writes the 3D ADI sweep's
+damped step, base + scale x, instead of x (the step epilogue, an
+instantiation of its own; ``base`` may be the output, updated in place): the
+sweep's multiply, add and copy of x never reach device memory.
+
 :func:`pcr_apply_lines` sends tensors that lie on the CPU to the plain
 version; any other tensor launches the kernel or raises. There is no fallback
 from a failed build or launch. It records no autograd graph: its callers (the
@@ -48,6 +53,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import sys
+import types
 from typing import NamedTuple
 
 import torch
@@ -62,6 +68,10 @@ from . import COUNTED, build
 LAUNCHES = 0
 CAPTURED = 0
 COUNTED.append(sys.modules[__name__])
+# Of those, the launches with the step epilogue (the ADI sweep's damped
+# steps), counted the same way.
+FUSED = types.SimpleNamespace(LAUNCHES=0, CAPTURED=0)
+COUNTED.append(FUSED)
 
 # A block's shared memory on sm_90 (slab::kMaxSmemBytes in csrc/slab_stage.cuh).
 MAX_SMEM_BYTES = 232448
@@ -117,6 +127,9 @@ PLAN_FIELDS = Plan._fields
 
 _ENTRY = {torch.float32: "pcr_lines_f32", torch.float64: "pcr_lines_f64"}
 _INFO_ENTRY = {torch.float32: "pcr_lines_info_f32", torch.float64: "pcr_lines_info_f64"}
+_STEP_ENTRY = {torch.float32: "pcr_lines_step_f32", torch.float64: "pcr_lines_step_f64"}
+_STEP_INFO_ENTRY = {torch.float32: "pcr_lines_step_info_f32",
+                    torch.float64: "pcr_lines_step_info_f64"}
 
 
 def line_view(shape, axis: int) -> tuple[int, int, int]:
@@ -259,15 +272,36 @@ def _shapes(F: torch.Tensor, b: torch.Tensor, axis: int):
     )
 
 
-def pcr_apply_lines_plain(F: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+def _check_step(b: torch.Tensor, scale, base, out) -> None:
+    """Raises ValueError where the step epilogue's ``base`` or the ``out``
+    tensor does not belong to b, or ``base`` comes without ``scale``."""
+    if base is not None and scale is None:
+        raise ValueError("base needs a scale")
+    for name, t in (("base", base), ("out", out)):
+        if t is not None and (t.shape != b.shape or t.dtype != b.dtype or t.device != b.device):
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} is not like b "
+                             f"{tuple(b.shape)} {b.dtype} on {b.device}")
+
+
+def pcr_apply_lines_plain(F: torch.Tensor, b: torch.Tensor, axis: int, *, scale=None,
+                          base=None, out=None) -> torch.Tensor:
     """The plain version: ``ops.lines.pcr_apply`` on the levels of F (views),
-    broadcast over the solve axis of b where it has one."""
+    broadcast over the solve axis of b where it has one; with ``scale``,
+    ``base + scale * x`` (or ``scale * x``), each op rounded on its own as
+    the kernel's epilogue does. Written into ``out`` if given (it may be
+    ``base``)."""
+    _check_step(b, scale, base, out)
     B, S, grid = _shapes(F, b, axis)
     steps, dinv = _lines.split_factors(F, 1)
     if b.ndim == F.ndim:
         steps = [(al.unsqueeze(1), be.unsqueeze(1)) for al, be in steps]
         dinv = dinv.unsqueeze(1)
-    return _lines.pcr_apply(steps, dinv, b, axis=axis)
+    x = _lines.pcr_apply(steps, dinv, b, axis=axis)
+    if scale is not None:
+        x = scale * x
+        if base is not None:
+            x = base + x
+    return x if out is None else out.copy_(x)
 
 
 def _check(F: torch.Tensor, b: torch.Tensor, axis: int):
@@ -292,58 +326,73 @@ def _plan_arg(plan: Plan):
 
 
 def kernel_info(B: int, S: int, grid, axis: int, L: int,
-                dtype: torch.dtype = torch.float32) -> dict:
+                dtype: torch.dtype = torch.float32, step: bool = False) -> dict:
     """Registers, spill bytes, shared memory per block, lines per tile (in
     ``tile_rows``), solves (``solves_per_group``, always S) and resident
     blocks per SM of a launch of B batches of S solves on ``grid`` with lines
-    along ``axis`` and L levels, and the fields of its :func:`tile_plan`."""
+    along ``axis`` and L levels (with ``step``, of the step epilogue's
+    instantiation), and the fields of its :func:`tile_plan`."""
     outer, n, inner = line_view(tuple(grid), axis)
     plan = tile_plan(B, S, outer, n, inner, L, torch.empty((), dtype=dtype).element_size())
-    info = build.kernel_info(_INFO_ENTRY[dtype], B, S, outer, n, inner, L, _plan_arg(plan))
+    entry = (_STEP_INFO_ENTRY if step else _INFO_ENTRY)[dtype]
+    info = build.kernel_info(entry, B, S, outer, n, inner, L, _plan_arg(plan))
     return {**info, **plan._asdict()}
 
 
 def launch(lib, F: torch.Tensor, b: torch.Tensor, x: torch.Tensor, axis: int,
-           plan: Plan | None = None) -> None:
+           plan: Plan | None = None, *, scale=None, base=None) -> None:
     """One launch of the kernel in ``lib`` (the package's library or a probe
-    build) on the current stream, x = T^{-1} b, with ``plan`` (else
-    :func:`tile_plan`'s); raises on a CUDA error (a plan the kernel cannot
-    run is one). Counts nothing: :func:`pcr_apply_lines` does."""
+    build) on the current stream, x = T^{-1} b (with ``scale``, the step
+    epilogue's x = base + scale T^{-1} b; ``base`` may be x), with ``plan``
+    (else :func:`tile_plan`'s); raises on a CUDA error (a plan the kernel
+    cannot run is one). Counts nothing: :func:`pcr_apply_lines` does."""
     B, S, grid = _shapes(F, b, axis)
     outer, n, inner = line_view(grid, axis)
     L = (F.shape[1] - 1) // 2
     if plan is None:
         plan = tile_plan(B, S, outer, n, inner, L, b.element_size())
-    err = getattr(lib, _ENTRY[b.dtype])(
-        F.data_ptr(), b.data_ptr(), x.data_ptr(), B, S, outer, n, inner, L, _plan_arg(plan),
-        torch.cuda.current_stream().cuda_stream,
-    )
+    args = (B, S, outer, n, inner, L, _plan_arg(plan), torch.cuda.current_stream().cuda_stream)
+    if scale is None:
+        err = getattr(lib, _ENTRY[b.dtype])(F.data_ptr(), b.data_ptr(), x.data_ptr(), *args)
+    else:
+        err = getattr(lib, _STEP_ENTRY[b.dtype])(
+            F.data_ptr(), b.data_ptr(), x.data_ptr(), None if base is None else base.data_ptr(),
+            float(scale), *args)
     if err != 0:
         raise RuntimeError(f"pcr_lines launch failed: CUDA error {err}")
 
 
-def pcr_apply_lines(F: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+def pcr_apply_lines(F: torch.Tensor, b: torch.Tensor, axis: int, *, scale=None, base=None,
+                    out=None) -> torch.Tensor:
     """x = T^{-1} b for the tridiagonal lines along ``axis`` (negative, into
-    the grid), from their stacked PCR factors.
+    the grid), from their stacked PCR factors; with ``scale``, the step
+    ``base + scale * x`` (``scale * x`` without ``base``) in the same launch.
 
     F: (B, 2L+1, *grid) from ``ops.lines.pcr_factor_stacked`` (alpha_k, beta_k,
-    ..., dinv); b: (B, S, *grid) or (B, *grid). Tensors on the CPU take the
-    plain version; any other launches K3 with :func:`tile_plan`'s plan or
-    raises (no autograd).
+    ..., dinv); b: (B, S, *grid) or (B, *grid); ``base`` and ``out`` like b,
+    ``out`` may be ``base`` (a new tensor without it). Tensors on the CPU take
+    the plain version; any other launches K3 with :func:`tile_plan`'s plan or
+    raises (no autograd). A launch with ``scale`` counts in :data:`FUSED`
+    too.
     """
     global LAUNCHES, CAPTURED
     if F.device.type == "cpu" and b.device.type == "cpu":
-        return pcr_apply_lines_plain(F, b, axis)
+        return pcr_apply_lines_plain(F, b, axis, scale=scale, base=base, out=out)
     plan = _check(F, b, axis)
+    _check_step(b, scale, base, out)
+    if not all(t is None or t.is_contiguous() for t in (base, out)):
+        raise ValueError("base and out must be contiguous")
     lib = build.load_library()
     if b.device.type != "cuda" or F.device != b.device:
         raise ValueError(f"the kernel needs CUDA tensors on one device, got {F.device}, {b.device}")
-    x = torch.empty_like(b)
+    x = torch.empty_like(b) if out is None else out
     with torch.cuda.device(b.device):
         capturing = torch.cuda.is_current_stream_capturing()
-        launch(lib, F, b, x, axis, plan)
+        launch(lib, F, b, x, axis, plan, scale=scale, base=base)
     if capturing:
         CAPTURED += 1
+        FUSED.CAPTURED += scale is not None
     else:
         LAUNCHES += 1
+        FUSED.LAUNCHES += scale is not None
     return x

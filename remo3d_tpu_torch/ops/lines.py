@@ -126,7 +126,9 @@ def pcr_apply(steps, dinv, b, axis: int = 0):
     """Apply a :func:`pcr_factor` factorization to (batched) right-hand sides.
 
     Each level is x + alpha*x[i-s] + beta*x[i+s] (zero outside the line), written
-    as two in-place multiply-adds on the in-range windows of a fresh copy.
+    as two in-place adds of products on the in-range windows of a fresh copy,
+    each product and sum rounded on its own (no fused multiply-add), as the
+    CUDA kernel K3 rounds them.
     """
     x = b
     s = 1
@@ -135,8 +137,8 @@ def pcr_apply(steps, dinv, b, axis: int = 0):
         if s < n:
             m = n - s
             nxt = x.clone()
-            nxt.narrow(axis, s, m).addcmul_(alpha.narrow(axis, s, m), x.narrow(axis, 0, m))
-            nxt.narrow(axis, 0, m).addcmul_(beta.narrow(axis, 0, m), x.narrow(axis, s, m))
+            nxt.narrow(axis, s, m).add_(alpha.narrow(axis, s, m) * x.narrow(axis, 0, m))
+            nxt.narrow(axis, 0, m).add_(beta.narrow(axis, 0, m) * x.narrow(axis, s, m))
             x = nxt
         s *= 2
     return x * dinv

@@ -66,10 +66,13 @@ def line_factor3(C, direction: str, max_steps=None):
     return axis, F
 
 
-def line_apply3(factors, b):
+def line_apply3(factors, b, *, scale=None, base=None, out=None):
     """Apply a :func:`line_factor3` factorization to b, (B, NZ, NP, NR) or
     with a solve axis (B, S, NZ, NP, NR): on a CUDA device one K3 launch (with
-    ``lines.PCR_KERNEL``), else :func:`~.lines.pcr_apply`."""
+    ``lines.PCR_KERNEL``), else :func:`~.lines.pcr_apply`. With ``scale`` it
+    returns the step ``base + scale * T^-1 b`` (``scale * T^-1 b`` without
+    ``base``), in the same launch on the card, into ``out`` if given (which
+    may be ``base``): ``kernels.pcr_lines.pcr_apply_lines``."""
     axis, F = factors
     apply_ = pcr_lines.pcr_apply_lines if lines.PCR_KERNEL else pcr_lines.pcr_apply_lines_plain
-    return apply_(F, b, axis)
+    return apply_(F, b, axis, scale=scale, base=base, out=out)

@@ -60,3 +60,10 @@ def pole_project(u: torch.Tensor) -> torch.Tensor:
     out = u.clone()
     out[..., :, :, 0] = u[..., :, :, 0].mean(dim=-1, keepdim=True)
     return out
+
+
+def pole_tie_(u: torch.Tensor) -> torch.Tensor:
+    """:func:`pole_project` in place, for tensors outside autograd: only the
+    axis column (radial station 0) is read and written. Returns ``u``."""
+    u[..., :, :, 0] = u[..., :, :, 0].mean(dim=-1, keepdim=True)
+    return u

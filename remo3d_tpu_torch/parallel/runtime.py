@@ -25,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..kernels import pcr_lines
 from ..kernels.stencil3d import half_planes_3d, stencil3d_apply_half
 from ..meshing.carve import carve_local_model
 from ..meshing.device_mesh import device_mesh_2d
@@ -61,7 +62,7 @@ from ..ops.cg import pcg, solve_stream
 from ..ops.lines3d import line_apply3, line_factor3
 from ..ops.multigrid import MGConfig, make_mg_preconditioner, make_stencil_apply
 from ..ops.stencil import stencil_apply
-from ..ops.stencil3d import pole_project, stencil3d_apply
+from ..ops.stencil3d import pole_project, pole_tie_, stencil3d_apply
 from ..planner import BatchTask
 from ..utils.timers import PhaseTimers, entered, request_context, span
 from . import distributed
@@ -327,7 +328,12 @@ def _precond3(C, matvec, direct_apply=None, precond="adi", adi_damp=0.6):
 
     * ``"adi"``: damped symmetric multiplicative sweep z-p-r-p-z; the damping
       keeps the sweep contractive (undamped, modes with rho(T^-1 A) > 2
-      diverge). Each application runs the operator 4 times.
+      diverge). Each application runs the operator 4 times. Each line solve
+      writes the sweep's next iterate itself, z + w T^-1 res (``line_apply3``
+      with ``scale`` and ``base``: on the card in K3's launch, z updated in
+      place), and then only the axis column is tied (:func:`pole_tie_`): z is
+      tied already, so that is P(z + w y) = z + w P(y), the JAX package's
+      expression, up to the rounding of the axis column.
     * ``"lines"``: additive average of the three line solves.
     * ``"direct"``: ``direct_apply``, the banded-block factorization's apply
       from :func:`_factor3_direct`. It leaves the axis DOFs untied, so
@@ -341,10 +347,10 @@ def _precond3(C, matvec, direct_apply=None, precond="adi", adi_damp=0.6):
         if precond == "adi":
             def M_inv(r):
                 r = pole_project(r)
-                z = adi_damp * pole_project(line_apply3(factors["z"], r))
+                z = pole_tie_(line_apply3(factors["z"], r, scale=adi_damp))
                 for d in ("p", "r", "p", "z"):
                     res = r - matvec(z)
-                    z = z + adi_damp * pole_project(line_apply3(factors[d], res))
+                    pole_tie_(line_apply3(factors[d], res, scale=adi_damp, base=z, out=z))
                 return z
         else:
             def M_inv(r):
@@ -1031,8 +1037,10 @@ class Executor:
                 with self.timers.phase("stage"):
                     args = place(arrays)
                 del arrays
+                fused = pcr_lines.FUSED.LAUNCHES
                 with self.timers.phase("solve", label="remo3d_tpu_torch.solve_chunk"):
                     (u_axis, rel_res, iters), graph = solve(args)
+                fused = pcr_lines.FUSED.LAUNCHES - fused
                 del args
                 n_failed = 0
                 n_nan = 0
@@ -1071,6 +1079,7 @@ class Executor:
                         "worst_residual": worst,
                         "failed_solves": n_failed,
                         "grids": sum(b in built for b in lanes_of(start)),
+                        "k3_fused": fused,
                         **graph,
                     }
                 )

@@ -6,6 +6,7 @@ is not installed. On a machine with a card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q``.
 """
 
+import math
 import sys
 
 import numpy as np
@@ -462,6 +463,94 @@ def test_pcr_kernel_matches_plain(cuda_device, shape, axis, dtype, tol, solve_ax
     ref = pcr_lines.pcr_apply_lines_plain(F, b, axis)
     assert out.shape == b.shape and out.dtype == dtype and torch.equal(b, b_before)
     assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# Both 3D benchmark cells' chunks (bm2_dip60 257x25x65, bm3_dip30
+# 193x17x49, 8 batches of 5 solves): the sweep's z (clustered), p and r lines.
+STEP_CASES = [((8, 5, 257, 25, 65), -3), ((8, 5, 257, 25, 65), -2), ((8, 5, 257, 25, 65), -1),
+              ((8, 5, 193, 17, 49), -3), ((8, 5, 193, 17, 49), -2), ((8, 5, 193, 17, 49), -1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape,axis", STEP_CASES)
+def test_pcr_step_epilogue_matches_plain(cuda_device, shape, axis, dtype, tol, in_place):
+    """K3 with the step epilogue, base + w x (and w x without base), in place
+    over base or into a new tensor: bit for bit K3's x through the torch
+    multiply and add on the card, and within the tolerance of K3 of the
+    plain version; one launch, counted in FUSED too; b left as it was."""
+    F, b = _pcr_inputs(np.random.default_rng(9), shape, axis, True, dtype, cuda_device)
+    L = (F.shape[1] - 1) // 2
+    if axis == -3:  # the z lines are split over a cluster
+        assert pcr_lines.kernel_info(shape[0], shape[1], shape[2:], axis, L, dtype)["cluster"] > 1
+    z = torch.randn(b.shape, device=cuda_device, dtype=dtype)
+    b_before, z_before, w = b.clone(), z.clone(), 0.6
+    x = pcr_lines.pcr_apply_lines(F, b, axis)
+    before = pcr_lines.LAUNCHES, pcr_lines.FUSED.LAUNCHES
+    got = pcr_lines.pcr_apply_lines(F, b, axis, scale=w, base=z, out=z if in_place else None)
+    torch.cuda.synchronize()
+    assert (pcr_lines.LAUNCHES, pcr_lines.FUSED.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, z_before + w * x) and torch.equal(b, b_before)
+    assert (got is z) == in_place and (in_place or torch.equal(z, z_before))
+    assert torch.equal(pcr_lines.pcr_apply_lines(F, b, axis, scale=w), w * x)
+    ref = pcr_lines.pcr_apply_lines_plain(F, b, axis, scale=w, base=z_before)
+    assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# kernel_info of K3's launch without the step epilogue at the 2D log's finest
+# lines (74 batches of 5 solves, and the power iterations' one vector, on
+# 761x161), as the instantiation before the epilogue was added reports it on
+# an H100: (registers, spill bytes, shared memory per block, blocks per SM).
+K3_2D_INFO = {
+    ("z", 5, torch.float32): (68, 0, 75328, 3), ("r", 5, torch.float32): (56, 0, 108256, 2),
+    ("z", 1, torch.float32): (68, 0, 64288, 3), ("r", 1, torch.float32): (56, 0, 61888, 3),
+    ("z", 5, torch.float64): (72, 0, 75328, 3), ("r", 5, torch.float64): (62, 0, 108256, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,S,dtype", list(K3_2D_INFO))
+def test_pcr_kernel_info_without_the_step_is_unchanged(cuda_device, d, S, dtype):
+    """The 2D V-cycle's launches of K3 (no step epilogue) keep their
+    registers, spills, shared memory, occupancy and tile plan."""
+    axis = {"z": -2, "r": -1}[d]
+    L = math.ceil(math.log2(761 if d == "z" else 161))
+    info = pcr_lines.kernel_info(74, S, (761, 161), axis, L, dtype)
+    outer, n, inner = pcr_lines.line_view((761, 161), axis)
+    plan = pcr_lines.tile_plan(74, S, outer, n, inner, L, torch.empty((), dtype=dtype).element_size())
+    assert {k: info[k] for k in pcr_lines.PLAN_FIELDS} == plan._asdict()
+    got = (info["registers"], info["spill_bytes"], info["smem_bytes"], info["blocks_per_sm"])
+    assert got == K3_2D_INFO[(d, S, dtype)]
+
+
+@pytest.mark.parametrize("device", [pytest.param("cuda", marks=pytest.mark.cuda), "cpu"])
+def test_k3_fused_counts_the_sweep_steps(device):
+    """A small 3D "adi" log (33x5x17, chunks of 2 batches): every chunk row
+    counts the sweep's steps written by K3's epilogue, 5 per application of
+    the preconditioner (one before the CG loop, one per iteration; the loop
+    graphed on the card); none on the CPU, where the plain version runs, and
+    none in a 2D chunk."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m = Model.compute_synthetic_logs(
+        ["A2.0M0.5N"], np.array([11.5, 12.5, 13.5]), BM3_FORMATION, BM3_BOREHOLE,
+        borehole_geometry_type="radius", device=device, batch_size=1, verbose=False, dip=30,
+        grid_spec3d=GridSpec3D(nz=33, np_=5, nr=17, n_wall_cells=3, n_blend_cells=2),
+        executor_overrides={"precond3d": "adi", "chunk_size_3d": 2})
+    chunks = m.last_report["chunks"]
+    per_chunk = 5 if device == "cuda" else 0
+    assert len(chunks) == 2 and all(c["iterations"] > 0 for c in chunks)
+    assert [c["k3_fused"] for c in chunks] == [per_chunk * (c["iterations"] + 1) for c in chunks]
+    if device == "cuda":
+        assert all(c["replays"] == c["iterations"] - 1 for c in chunks)
+        m2 = Model.compute_synthetic_logs(
+            ["A2.0M0.5N"], np.array([-0.4, 0.0, 0.6]), BM3_FORMATION, BM3_BOREHOLE,
+            borehole_geometry_type="radius", device=device, batch_size=1, verbose=False,
+            grid_spec=GridSpec2D(nz=97, nr=33, n_wall_cells=4, n_blend_cells=2),
+            executor_overrides={"preconditioner": "multigrid", "chunk_size": 2})
+        assert m2.last_report["chunks"] and all(
+            c["k3_fused"] == 0 for c in m2.last_report["chunks"])
 
 
 def _longest_line(S, inner, itemsize):

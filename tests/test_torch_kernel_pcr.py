@@ -202,6 +202,63 @@ def test_pcr_apply_solves_the_lines(n):
             np.testing.assert_allclose(sol, np.linalg.solve(T, rhs), rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("solve_axis", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("direction", ["z", "p", "r"])
+def test_plain_step_bit_equal_to_its_ops(direction, dtype, solve_axis, in_place):
+    """The step epilogue's plain version, base + scale * x (and scale * x
+    without base), is bit for bit the two torch ops on the plain line apply,
+    into a new tensor or in place over base (``out`` is base); the wrapper
+    takes it on the CPU, and b is left as it was."""
+    C = torch.as_tensor(_stencil(3)).to(dtype)
+    axis, F = tlines3.line_factor3(C, direction)
+    rng = np.random.default_rng(11)
+    shape = (2, 3, *GRID_3D) if solve_axis else (2, *GRID_3D)
+    b, z = (torch.as_tensor(rng.standard_normal(shape)).to(dtype) for _ in range(2))
+    b_before, z_before, w = b.clone(), z.clone(), 0.6
+    x = pcr_lines.pcr_apply_lines_plain(F, b, axis)
+    out = z if in_place else None
+    got = pcr_lines.pcr_apply_lines_plain(F, b, axis, scale=w, base=z, out=out)
+    assert torch.equal(got, z_before + w * x) and torch.equal(b, b_before)
+    assert (got is z) == in_place and torch.equal(z, got if in_place else z_before)
+    assert torch.equal(pcr_lines.pcr_apply_lines_plain(F, b, axis, scale=w), w * x)
+    assert torch.equal(pcr_lines.pcr_apply_lines(F, b, axis, scale=w, base=z_before),
+                       z_before + w * x)
+    with pytest.raises(ValueError, match="base needs a scale"):
+        pcr_lines.pcr_apply_lines_plain(F, b, axis, base=z_before)
+    with pytest.raises(ValueError, match="is not like b"):
+        pcr_lines.pcr_apply_lines_plain(F, b, axis, scale=w, base=z_before[:1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dim,direction", CASES)
+def test_pcr_apply_rounds_each_product_and_sum(dim, direction, dtype):
+    """pcr_apply is bit for bit the levels written in numpy, where every
+    product and every sum is rounded on its own (no fused multiply-add), in
+    K3's order: x + alpha x[i - s], then + beta x[i + s], then x dinv."""
+    C = torch.as_tensor(_stencil(dim)).to(torch.float32 if dtype == np.float32 else torch.float64)
+    axis, F = _factor(dim, direction, C)
+    steps, dinv = tlines.split_factors(F, -3 if dim == 2 else -4)
+    grid = GRID_2D if dim == 2 else GRID_3D
+    b = np.random.default_rng(12).standard_normal((2, *grid)).astype(dtype)
+    x = np.moveaxis(b, axis, -1)
+    s = 1
+    for alpha, beta in steps:
+        al, be = (np.moveaxis(t.numpy(), axis, -1) for t in (alpha, beta))
+        n = x.shape[-1]
+        if s < n:
+            nxt = x.copy()
+            nxt[..., s:] = nxt[..., s:] + al[..., s:] * x[..., :-s]
+            nxt[..., :-s] = nxt[..., :-s] + be[..., :-s] * x[..., s:]
+            x = nxt
+        s *= 2
+    ref = np.moveaxis(x * np.moveaxis(dinv.numpy(), axis, -1), -1, axis)
+    out = tlines.pcr_apply(steps, dinv, torch.as_tensor(b), axis=axis).numpy()
+    assert out.dtype == dtype
+    np.testing.assert_array_equal(out, ref)
+
+
 def test_line_view():
     assert pcr_lines.line_view((761, 161), -1) == (761, 161, 1)
     assert pcr_lines.line_view((761, 161), -2) == (1, 761, 161)
@@ -212,17 +269,21 @@ def test_line_view():
 
 def test_wrapper_on_cpu_uses_plain_and_counts_nothing():
     """On CPU tensors: the plain version, bit-equal to line_apply's, no build
-    and no count; the module counts its launches through kernels.COUNTED."""
-    assert pcr_lines in kernels.COUNTED
-    before = (pcr_lines.LAUNCHES, pcr_lines.CAPTURED)
+    and no count; the module counts its launches, and those with the step
+    epilogue, through kernels.COUNTED."""
+    assert pcr_lines in kernels.COUNTED and pcr_lines.FUSED in kernels.COUNTED
+    before = (pcr_lines.LAUNCHES, pcr_lines.CAPTURED, pcr_lines.FUSED.LAUNCHES,
+              pcr_lines.FUSED.CAPTURED)
     C = torch.as_tensor(_stencil(3)).float()
     factors = tlines3.line_factor3(C, "p")
     b = torch.as_tensor(np.random.default_rng(2).standard_normal((2, 3, *GRID_3D))).float()
     with mock.patch.object(build, "load_library", side_effect=AssertionError("no build on CPU")):
         out = pcr_lines.pcr_apply_lines(factors[1], b, factors[0])
         ref = tlines3.line_apply3(factors, b)
-    assert torch.equal(out, ref)
-    assert (pcr_lines.LAUNCHES, pcr_lines.CAPTURED) == before
+        step = pcr_lines.pcr_apply_lines(factors[1], b, factors[0], scale=0.6, base=b)
+    assert torch.equal(out, ref) and torch.equal(step, b + 0.6 * ref)
+    assert (pcr_lines.LAUNCHES, pcr_lines.CAPTURED, pcr_lines.FUSED.LAUNCHES,
+            pcr_lines.FUSED.CAPTURED) == before
 
 
 def test_wrapper_raises_instead_of_falling_back():
@@ -459,21 +520,27 @@ def test_make_plan_and_refusal_follow_the_plan():
 
 def test_line_apply_calls_the_wrapper_with_the_stacked_factors():
     """line_apply_2d / line_apply3 hand the stacked factors to the wrapper (K3
-    on a CUDA tensor); with PCR_KERNEL off they call the plain version."""
+    on a CUDA tensor), line_apply3 its step arguments too; with PCR_KERNEL
+    off they call the plain version."""
     factors = tlines.line_factor_2d(torch.as_tensor(_stencil(2)).float(), "r")
     f3 = tlines3.line_factor3(torch.as_tensor(_stencil(3)).float(), "z")
     b = torch.zeros((2, 3, *GRID_2D))
-    seen = []
+    b3 = torch.zeros((2, 3, *GRID_3D))
+    seen, steps = [], []
 
-    def wrapper(F, rhs, axis):
+    def wrapper(F, rhs, axis, **step):
         seen.append((F, axis))
+        steps.append(step)
         return rhs
 
     with mock.patch.object(pcr_lines, "pcr_apply_lines", wrapper):
         tlines.line_apply_2d(factors, b)
-        tlines3.line_apply3(f3, torch.zeros((2, 3, *GRID_3D)))
+        tlines3.line_apply3(f3, b3)
         assert [(F is f[1], axis) for (F, axis), f in zip(seen, (factors, f3))] == [
             (True, -1), (True, -3)]
+        tlines3.line_apply3(f3, b3, scale=0.5, base=b3, out=b3)
+        assert steps[0] == {} and steps[1] == {"scale": None, "base": None, "out": None}
+        assert steps[2]["scale"] == 0.5 and steps[2]["base"] is b3 and steps[2]["out"] is b3
         seen.clear()
         with mock.patch.object(tlines, "PCR_KERNEL", False):
             out = tlines.line_apply_2d(factors, b)

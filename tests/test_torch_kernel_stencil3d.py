@@ -192,18 +192,19 @@ def test_3d_solve_routes_every_apply_through_the_wrapper():
     the half-storage wrapper: the boundary lift once (no pole tie), the initial
     ADI sweep 4 times, then 5 times per CG iteration (matvec + sweep), all of
     these with the pole tie fused (``pole=True``) and no ``pole_project`` call
-    of the solver's own around them: 6 remain per preconditioner application
-    (its residual and its five line solves), one for the load. With it off,
-    only the full 27-plane apply runs, between two ``pole_project`` calls, and
-    the two agree."""
+    of the solver's own around them: one remains per preconditioner
+    application (its residual), beside five in-place ties of the axis column
+    (``pole_tie_``, after its five line solves), and one for the load. With
+    it off, only the full 27-plane apply runs, between two ``pole_project``
+    calls, and the two agree."""
     from tests.test_torch_ops3d import make_problem
 
     p = make_problem()
     args = [torch.as_tensor(p[k]) for k in ("coords", "sigma", "free", "src_i", "src_fac")]
     kw = dict(tol=1e-5, maxiter=400, metric="cylindrical")
-    calls = {"half": 0, "half_pole": 0, "full": 0, "project": 0}
-    half, full, project = (runtime.stencil3d_apply_half, runtime.stencil3d_apply,
-                           runtime.pole_project)
+    calls = {"half": 0, "half_pole": 0, "full": 0, "project": 0, "tie": 0}
+    half, full, project, tie = (runtime.stencil3d_apply_half, runtime.stencil3d_apply,
+                                runtime.pole_project, runtime.pole_tie_)
 
     def count(name, fn):
         def wrapped(*a, pole=None):
@@ -216,17 +217,20 @@ def test_3d_solve_routes_every_apply_through_the_wrapper():
 
     with mock.patch.object(runtime, "stencil3d_apply_half", count("half", half)), \
             mock.patch.object(runtime, "stencil3d_apply", count("full", full)), \
-            mock.patch.object(runtime, "pole_project", count("project", project)):
+            mock.patch.object(runtime, "pole_project", count("project", project)), \
+            mock.patch.object(runtime, "pole_tie_", count("tie", tie)):
         ua_k, _, it_k = runtime._solve_chunk_3d(*args, use_kernel=True, **kw)
         n_k = 5 + 5 * it_k
         # Every apply but the boundary lift carries the tie; the solver itself
-        # projects only the load and inside the preconditioner (6 per sweep).
+        # projects only the load and inside the preconditioner (1 per sweep,
+        # and 5 ties in place).
         assert calls == {"half": n_k, "half_pole": n_k - 1, "full": 0,
-                         "project": 1 + 6 * (1 + it_k)}
+                         "project": 1 + (1 + it_k), "tie": 5 * (1 + it_k)}
         ua_p, _, it_p = runtime._solve_chunk_3d(*args, use_kernel=False, **kw)
         n_p = 5 + 5 * it_p
         assert calls["half"] == n_k and calls["full"] == n_p
-        assert calls["project"] == 1 + 6 * (1 + it_k) + 1 + 6 * (1 + it_p) + 2 * (n_p - 1)
+        assert calls["project"] == 1 + (1 + it_k) + 1 + (1 + it_p) + 2 * (n_p - 1)
+        assert calls["tie"] == 5 * (1 + it_k) + 5 * (1 + it_p)
     assert abs(it_k - it_p) <= 1
     np.testing.assert_allclose(ua_k.numpy(), ua_p.numpy(), rtol=1e-4,
                                atol=1e-4 * float(ua_p.abs().max()))

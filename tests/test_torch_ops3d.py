@@ -30,6 +30,7 @@ from remo3d_tpu_torch.ops import stencil3d as tst
 from remo3d_tpu_torch.ops.lines import split_factors
 from remo3d_tpu_torch.parallel.runtime import _apply3 as t_apply3
 from remo3d_tpu_torch.parallel.runtime import _pcg3 as t_pcg3
+from remo3d_tpu_torch.parallel.runtime import _precond3 as t_precond3
 from remo3d_tpu_torch.parallel.runtime import _solve_chunk_3d as t_solve_chunk_3d
 
 torch.set_num_threads(2)
@@ -145,6 +146,8 @@ def test_pole_project_matches_jax():
     np.testing.assert_array_equal(out[..., 1:].numpy(), u[..., 1:])
     np.testing.assert_array_equal(u_t.numpy(), u)  # the input is left as it was
     close(tst.pole_project(out), ref)  # a projection
+    tied = u_t.clone()
+    assert tst.pole_tie_(tied) is tied and torch.equal(tied, out)  # the same, in place
 
 
 @pytest.mark.parametrize("direction", ["z", "p", "r"])
@@ -166,6 +169,41 @@ def test_line_factor_and_apply_match_jax(stencils, direction):
     out = tlines.line_apply3(f_t, torch.as_tensor(b))
     close(out, ref)
     close(getattr(tlines, f"line_solve_{direction}3")(C_t, torch.as_tensor(b)), ref_inline)
+
+
+def _adi_sweep_unfused(factors, matvec, r, w):
+    """The "adi" sweep as the JAX package writes it: each line solve's result
+    projected (a copy), scaled and added, z + w P(T^-1 res)."""
+    r = tst.pole_project(r)
+    z = w * tst.pole_project(tlines.line_apply3(factors["z"], r))
+    for d in ("p", "r", "p", "z"):
+        res = r - matvec(z)
+        z = z + w * tst.pole_project(tlines.line_apply3(factors[d], res))
+    return z
+
+
+def test_adi_sweep_writes_its_step_in_the_line_solve(stencils):
+    """The "adi" preconditioner, whose line solves write z + w T^-1 res and
+    then tie only the axis column: within 1e-6 of max|z| of the unfused
+    sweep (the axis column's rounding spreads through the later steps), its
+    azimuth copies at r = 0 exactly equal; one step, from a tied z and the
+    same res, is bit-equal to the unfused step off the axis column."""
+    _, C_t = stencils
+    w = 0.6
+    matvec = t_apply3(C_t, False, pole=True)
+    rng = np.random.default_rng(8)
+    r = torch.as_tensor(rng.standard_normal((2, 3, SPEC.nz, SPEC.np_, SPEC.nr)).astype(np.float32))
+    z = t_precond3(C_t, matvec, precond="adi", adi_damp=w)(r)
+    factors = {d: tlines.line_factor3(C_t, d) for d in ("z", "p", "r")}
+    ref = _adi_sweep_unfused(factors, matvec, r, w)
+    assert float((z - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert torch.equal(z[..., 0], z[..., :1, 0].expand_as(z[..., 0]))
+    for d in ("z", "p", "r"):
+        res = r - matvec(z)
+        step = tst.pole_tie_(tlines.line_apply3(factors[d], res, scale=w, base=z.clone()))
+        unfused = z + w * tst.pole_project(tlines.line_apply3(factors[d], res))
+        assert torch.equal(step[..., 1:], unfused[..., 1:])
+        assert float((step - unfused).abs().max()) <= 1e-6 * float(unfused.abs().max())
 
 
 @pytest.mark.parametrize("precond", ["adi", "lines"])
