@@ -103,12 +103,6 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
 28. float64 potentials on the card against the finite-volume oracle at one
     BM1-like source depth, the 1x / 2x / 4x refinement ladder's observed
     order, and the BM3 dip ladder 0-60 NaN-free within its residual bound;
-29. the benchmark entry point, ``python -m remo3d_tpu_torch.bench --repeats
-    2``, in a child: its one line parses, is ok with no NaN, K1 launched in
-    its 2D workload and K2 in its 3D one, K3 in both, ``0 < bw_util_* <=
-    1``, and each warm-up wall (the first full-size call of a fresh process,
-    as phase 4's and phase 8's are) lies within 2x of the phase 4 / phase 8
-    wall of this run;
 30. kernel K3 (``pcr_lines``, the factored PCR line apply) against its plain
     version, float32 and float64, at every line shape of phases 4 and 8
     (each multigrid level of the 2D log in r and z, with and without the
@@ -127,9 +121,8 @@ card, nvcc and the checkout's own sources, imports nothing of JAX, and fails
 The launch counts of K1, K2 and K3 are read around every script of 25-28.
 
 Every phase group (3-6, 7-11, 12-15, 16-19, 20-24, 25-28, 30-32) runs in a
-child process
-(``python3 chip_smoke.py --phase <group>``), and phase 29 as the bench's own
-command, under ``timeout -k 10 <limit>``
+child process (``python3 chip_smoke.py --phase <group>``) under ``timeout -k
+10 <limit>``
 (:data:`GROUP_LIMITS`, about three times the group's time on an H100), so a
 hung launch fails the run with a printed line instead of blocking it; the
 parent builds the kernels once before the first group. Each child's last line
@@ -140,21 +133,11 @@ kernel; the last is ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --screen`` instead runs phases 12-15 alone,
 ``python3 chip_smoke.py --diff`` phases 16-19 and ``python3 chip_smoke.py
 --k3`` phases 30-32 (``--phase 25-28`` runs one group as a child would).
-``python3 chip_smoke.py --profile3d`` instead builds the kernels and profiles
-one warm phase-8 log with torch.profiler: kernel time by part and the device
-busy share (the union of kernel intervals over the wall).
 ``python3 chip_smoke.py --profile-direct`` instead profiles one warm direct
 log per dimension and exact schedule ("bcr", "scan"): wall, busy share, the
 factorization's seconds and the ten device activities that take most time.
 ``python3 chip_smoke.py --tune-direct`` instead times ``torch.linalg.inv`` at
 the direct solvers' block shapes and the 3D factorizations per ``z_block``.
-``python3 chip_smoke.py --graphs`` instead runs phase 4's and phase 8's logs
-and Example_01's, each with the CG loop op by op and graphed in turns (op by
-op, graph, graph, op by op; the logs of several chunks also graphed with
-``pipeline_window`` 1 twice in the middle): wall, split, CG iterations, graph
-capture seconds and replays, launches, peak allocated and reserved memory,
-and the device busy share and top five activities of a profiled run of each
-turn (:func:`graph_turns`).
 ``python3 chip_smoke.py --tune`` instead times K1 and K2 at their main
 shapes for every tile height, to choose the kernels' automatic one, and K3
 at every line shape of both logs, float32 and float64, for the tile plans of
@@ -301,19 +284,13 @@ JAX_BM3 = {15: "0.43% over dips 15-45", 30: "0.43% over dips 15-45",
 
 # Time limit (s) of each phase group's child: about three times the group's
 # time on an H100 80GB HBM3 at 700 W (3-6 and 7-11 ~25 s each, 12-15 ~150-230
-# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180-215 s, 29 ~80-100 s, 30-32
-# ~35 s) plus the child's start.
+# s, 16-19 ~55-70 s, 20-24 ~90-105 s, 25-28 ~180-215 s, 30-32 ~35 s) plus the
+# child's start.
 GROUP_LIMITS = {
     "3-6": 180, "7-11": 180, "12-15": 700, "16-19": 300, "20-24": 420, "25-28": 540,
-    "29": 360, "30-32": 240, "profile3d": 600, "profile-direct": 1800, "tune-direct": 600,
-    "tune": 600, "probe": 600, "graphs": 600,
+    "30-32": 240, "profile-direct": 1800, "tune-direct": 600, "tune": 600, "probe": 600,
 }
-GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "29", "30-32"]
-# Phase 29: the bench's timed calls per workload, its limit per workload's
-# child (s), and how far its warm-up walls may lie from phase 4's and 8's
-# (each the first full-size call of its process; the timed calls' median
-# lacks the first call's set-up, 0.4-0.9 s in 2D on an H100).
-BENCH_REPEATS, BENCH_LIMIT, BENCH_WALL_RATIO = 2, 150, 2.0
+GROUPS = ["3-6", "7-11", "12-15", "16-19", "20-24", "25-28", "30-32"]
 # Phase 30: K3 at the line shapes of phase 4's 2D log (its chunk of 74
 # batches of 5 solves on 761x161 and the multigrid's coarser levels) and of
 # phase 8's 3D chunk.
@@ -321,9 +298,9 @@ K3_2D_BS, K3_2D_GRID = (74, 5), (761, 161)
 K3_3D_SHAPE = (8, 5, 193, 17, 49)
 # The five line shapes on which the main paths spend K3's time (float32).
 MAIN_K3_SHAPES = ("2D level 0 z", "2D level 0 r", "3D z", "3D p", "3D r")
-MODES = {"--screen": "12-15", "--diff": "16-19", "--k3": "30-32", "--profile3d": "profile3d",
+MODES = {"--screen": "12-15", "--diff": "16-19", "--k3": "30-32",
          "--profile-direct": "profile-direct", "--tune-direct": "tune-direct",
-         "--tune": "tune", "--probe": "probe", "--graphs": "graphs"}
+         "--tune": "tune", "--probe": "probe"}
 
 
 def log(msg: str) -> None:
@@ -823,8 +800,7 @@ def log_3d(torch, depths, **kwargs):
 
 
 def run_2d(torch, card):
-    """Phases 4-6; returns the K1 and K3 launch counts and the wall of the
-    main-path run."""
+    """Phases 4-6; returns the K1 and K3 launch counts of the main-path run."""
     from remo3d_tpu_torch import Model
     from remo3d_tpu_torch.plotting import _write_tsv_groups
 
@@ -943,12 +919,11 @@ def run_2d(torch, card):
     log(f"2D uniform medium {rho} ohm-m: worst |Ra/Rt - 1| = {worst_u:.2e}")
     if not worst_u <= 5e-3:
         raise AssertionError(f"uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > 5e-3")
-    return launches, counts["pcr_lines"], elapsed
+    return launches, counts["pcr_lines"]
 
 
 def run_3d(torch, card):
-    """Phases 8-11; returns the K2 and K3 launch counts and the wall of the
-    main-path run."""
+    """Phases 8-11; returns the K2 and K3 launch counts of the main-path run."""
     from remo3d_tpu_torch.meshing.grid3d import GridSpec3D
 
     cuda32 = dict(device="cuda", dtype="float32")
@@ -1045,7 +1020,7 @@ def run_3d(torch, card):
         f"(limit {UNIFORM3D_REL:g})")
     if not worst_u <= UNIFORM3D_REL:
         raise AssertionError(f"3D uniform medium: |Ra/Rt - 1| = {worst_u:.2e} > {UNIFORM3D_REL}")
-    return launches, counts["pcr_lines"], elapsed
+    return launches, counts["pcr_lines"]
 
 
 def mesh_seconds(report) -> float:
@@ -1756,12 +1731,10 @@ def probe_k3(torch, card):
         del F, b, x
 
 
-def device_activity(torch, events, skip=()):
-    """Of a profile's events: the device activities (kernels and copies, without
-    the device-side copies of the annotation ranges named in ``skip``), the sum
-    of their times and the union of their intervals, both in ms."""
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in skip]
+def device_activity(torch, events):
+    """Of a profile's events: the device activities (kernels and copies), the
+    sum of their times and the union of their intervals, both in ms."""
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.device_time_total for e in kernels) / 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, None, None
@@ -1877,127 +1850,6 @@ def tune_direct(torch, card):
         log(f"tune-direct on {card}: schur_fixedpoint_factor_3d (2,193,{np_},{nr}) 8 passes "
             f"z_block {z_block}: {f_ms:.1f} ms, peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-
-
-def profile_3d(torch, card):
-    """One warm phase-8 log under torch.profiler: kernel time of K2, of K3
-    (the PCR line apply), of the pole projection and of the rest, and the
-    device busy share (union of kernel intervals over the profiled wall)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from remo3d_tpu_torch.parallel import runtime
-
-    def ranged(name, fn):
-        def wrapped(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return wrapped
-
-    runtime.pole_project = ranged("pole_project", runtime.pole_project)
-    cuda32 = dict(device="cuda", dtype="float32")
-    log_3d(torch, DEPTHS_3D, **cuda32)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model = log_3d(torch, DEPTHS_3D, **cuda32)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    names = ("pole_project",)
-    kernels, total, busy = device_activity(torch, events, names)
-    k2 = sum(e.device_time_total for e in kernels if "stencil3d_half" in e.name) / 1e3
-    k3 = sum(e.device_time_total for e in kernels if "pcr_lines" in e.name) / 1e3
-    ranges = {
-        name: sum(e.device_time_total for e in events
-                  if e.name == name and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
-        for name in names
-    }
-    rest = total - k2 - k3 - sum(ranges.values())
-    iters = [c["iterations"] for c in model.last_report["chunks"]]
-    n_pole = sum(1 for e in events
-                 if e.name == "pole_project" and e.device_type == torch.autograd.DeviceType.CPU)
-    log(f"profile on {card}: 3D log wall {wall_ms:.1f} ms, CG iterations {iters}, "
-        f"{len(kernels)} kernels; {n_pole} pole_project calls = {n_pole / sum(iters):.2f} per "
-        f"CG iteration")
-    log(f"profile: kernel time {total:.1f} ms; busy (union of kernel intervals) {busy:.1f} ms = "
-        f"{busy / wall_ms:.3f} of the wall")
-    for name, ms in (("K2 stencil3d_half", k2), ("K3 pcr_lines (PCR line apply)", k3),
-                     ("pole_project", ranges["pole_project"]), ("rest", rest)):
-        log(f"profile:   {name}: {ms:.1f} ms ({ms / total:.1%} of kernel time)" if total else
-            f"profile:   {name}: no device time recorded")
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
-
-
-def graph_turns(torch, card):
-    """``--graphs``: the CG loop graphed (ops/cg.py) against op by op, in turns
-    (op by op, graph, graph, op by op), on phase 4's 2D log and phase 8's 3D
-    log (the bench's two workloads) and Example_01's (251 depths, chunks of
-    96 and 68), each after a warm-up, all with the executor's default
-    pipeline window of 3. The two logs of several chunks also run graphed
-    with a window of 1 (no read-ahead) in the middle of their turns: op by
-    op, graph, graph with window 1 twice, graph, op by op. Per turn: one run
-    timed (wall, split,
-    CG iterations, graph capture seconds and replays, launches, peak
-    allocated and reserved memory), then one under torch.profiler recording
-    device activities only (the busy share of its wall and the five device
-    activities that take most time, as the bench reads them). Returns the
-    rows."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from remo3d_tpu_torch import Model
-    from remo3d_tpu_torch.bench import _busy_and_top
-    from remo3d_tpu_torch.examples.example_01 import DEPTHS as EX01_DEPTHS
-
-    def log_2d_of(depths, **kwargs):
-        return lambda **more: Model.compute_synthetic_logs(
-            EXAMPLE01_TOOLS, depths, FORMATION, BOREHOLE, borehole_geometry_type="radius",
-            device="cuda", verbose=False, **kwargs, **more)
-
-    logs = {
-        "2D phase 4": log_2d_of(DEPTHS, domain_radius=50, batch_size=5, dtype="float32"),
-        "3D phase 8": lambda **more: log_3d(torch, DEPTHS_3D, device="cuda", dtype="float32",
-                                            **more),
-        "Example_01": log_2d_of(EX01_DEPTHS),
-    }
-    def turn(make, mode, window):
-        def run():
-            return make(executor_overrides={"pipeline_window": window})
-        return (lambda: eager(run)) if mode == "op by op" else run
-
-    rows = []
-    for name, make in logs.items():
-        make()  # warm-up
-        turns = [("op by op", 3), ("graph", 3), ("graph", 3), ("op by op", 3)]
-        if name != "2D phase 4":  # one chunk: nothing to read ahead
-            turns[2:2] = [("graph", 1), ("graph", 1)]
-        for mode, window in turns:
-            run = turn(make, mode, window)
-            model, row = measured_log(torch, run)
-            report = model.last_report
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            busy, top, n_activities = _busy_and_top(prof, wall)
-            del prof
-            row = {"log": name, "cg_loop": mode, "pipeline_window": window, **row,
-                   "phases_s": report["phases"],
-                   "capture_s": [c["capture_seconds"] for c in report["chunks"]],
-                   "replays": [c["replays"] for c in report["chunks"]],
-                   "busy_share": busy, "profiled_wall_s": wall,
-                   "device_activities": n_activities, "top_kernels": top}
-            rows.append(row)
-            log(f"graphs on {card}: {name}, CG loop {mode}, window {window}: wall "
-                f"{row['wall_s']:.3f} s ("
-                + ", ".join(f"{k} {v:.3f}" for k, v in report["phases"].items())
-                + f"), CG iterations {row['cg_iterations']}, {row['graph']}, launches "
-                f"{row['launches']}, peak memory {row['peak_memory_bytes'] / 1e9:.3f} GB "
-                f"(reserved {row['peak_reserved_bytes'] / 1e9:.3f} GB); profiled: wall "
-                f"{wall:.3f} s, busy share {busy:.3f}, {n_activities} device activities; top "
-                + ", ".join(f"{k['name'][:40]} {k['ms']:.1f} ms" for k in top))
-    return rows
 
 
 def log_2d(torch, depths, dtype="float32", **kwargs):
@@ -2467,50 +2319,6 @@ def run_scripts(torch, card):
     return out
 
 
-def bench_phase(walls: dict) -> dict:
-    """Phase 29: ``python -m remo3d_tpu_torch.bench`` in a child under
-    ``GROUP_LIMITS["29"]``, its line checked and echoed; ``walls`` holds the
-    walls of phase 4 ("2d") and phase 8 ("3d") of this run, where they ran.
-    Returns the launch counts of the bench's layers runs for the kernels
-    line; raises on any fault, after checking everything."""
-    run = run_child([sys.executable, "-m", "remo3d_tpu_torch.bench", "--repeats",
-                     str(BENCH_REPEATS), "--limit", str(BENCH_LIMIT)], GROUP_LIMITS["29"],
-                    echo=False)
-    line = run["result"]
-    log(f"bench: exit {run['returncode']} after {run['seconds']:.1f} s; its line:")
-    log(json.dumps(line) if line is not None else "\n".join(run["tail"][-8:]))
-    if not isinstance(line, dict) or run["status"] == "cut":
-        raise AssertionError(f"bench: {run['status']}, no line")
-    faults = [] if line.get("ok") is True else [f"not ok: {line.get('failures')}"]
-    launches = kernel_dicts()
-    for dim, kernel in (("2d", "stencil2d_half"), ("3d", "stencil3d_half")):
-        layers = (line.get("layers") or {}).get(dim) or {}
-        n = (layers.get("launches") or {}).get(kernel, 0)
-        launches[kernel][f"launches_bench_{dim}"] = n
-        n3 = (layers.get("launches") or {}).get("pcr_lines", 0)
-        launches["pcr_lines"][f"launches_bench_{dim}"] = n3
-        if not n3 > 0:
-            faults.append(f"{dim}: pcr_lines launched {n3} times")
-        bw, wall = line.get(f"bw_util_{dim}"), line.get(f"warmup_{dim}_s")
-        if line.get(f"n_nan_{dim}") != 0:
-            faults.append(f"{dim}: n_nan {line.get(f'n_nan_{dim}')}")
-        if not n > 0:
-            faults.append(f"{dim}: {kernel} launched {n} times")
-        if not (bw is not None and 0 < bw <= 1):
-            faults.append(f"{dim}: bw_util {bw}")
-        if len(line.get(f"runs_{dim}_s") or []) != BENCH_REPEATS:
-            faults.append(f"{dim}: runs {line.get(f'runs_{dim}_s')}")
-        if dim in walls:
-            ratio = wall / walls[dim] if wall else float("nan")
-            log(f"bench {dim}: warm-up {wall} s (median {line.get(f'elapsed_{dim}_s')} s) "
-                f"against phase {4 if dim == '2d' else 8}'s {walls[dim]:.3f} s: {ratio:.3f}x")
-            if not 1 / BENCH_WALL_RATIO <= ratio <= BENCH_WALL_RATIO:
-                faults.append(f"{dim}: warm-up wall {wall} s against {walls[dim]:.3f} s")
-    if faults:
-        raise AssertionError("phase 29: " + "; ".join(faults))
-    return launches
-
-
 def k3_shapes() -> list:
     """(label, B, S or None, grid, axis) of every K3 launch of phases 4 and 8:
     per multigrid level of the 2D log its z and r lines, on the chunk's S
@@ -2784,14 +2592,14 @@ def run_group(group: str) -> dict:
     if group == "3-6":
         info = report_kernel_info(torch)  # 2: what the built kernels use
         k1 = check_k1(torch)  # 3
-        k1["launches"], k3, wall = run_2d(torch, card)  # 4-6
-        return {"k1": k1, "wall_s": wall, "launches_pcr_2d": k3,
+        k1["launches"], k3 = run_2d(torch, card)  # 4-6
+        return {"k1": k1, "launches_pcr_2d": k3,
                 "info": {"stencil2d_half": info["K1 float32 S=5 NR=161"],
                          "stencil3d_half": info["K2 float32 S=5 NPxNR=17x49"]}}
     if group == "7-11":
         k2 = check_k2(torch)  # 7
-        k2["launches"], k3, wall = run_3d(torch, card)  # 8-11
-        return {"k2": k2, "wall_s": wall, "launches_pcr_3d": k3}
+        k2["launches"], k3 = run_3d(torch, card)  # 8-11
+        return {"k2": k2, "launches_pcr_3d": k3}
     if group == "12-15":
         return {"screen": run_screen(torch, card)}
     if group == "16-19":
@@ -2803,10 +2611,8 @@ def run_group(group: str) -> dict:
         return {"launches": run_scripts(torch, card)}
     if group == "30-32":
         return {"k3": run_k3(torch, card)}
-    if group == "graphs":
-        return {"graphs": graph_turns(torch, card)}
-    {"profile3d": profile_3d, "profile-direct": profile_direct, "tune-direct": tune_direct,
-     "tune": tune, "probe": probe}[group](torch, card)
+    {"profile-direct": profile_direct, "tune-direct": tune_direct, "tune": tune,
+     "probe": probe}[group](torch, card)
     return {}
 
 
@@ -2859,16 +2665,6 @@ def main() -> int:
     t_start = time.perf_counter()
     results = {}
     for g in groups:
-        if g == "29":
-            walls = {dim: results[h]["wall_s"] for dim, h in (("2d", "3-6"), ("3d", "7-11"))
-                     if h in results}
-            try:
-                results[g] = bench_phase(walls)
-            except AssertionError as e:
-                log(f"chip_smoke: {e}")
-                return 1
-            log(f"phase group {g} done, {time.perf_counter() - t_start:.1f} s in all")
-            continue
         run = run_child([sys.executable, os.path.abspath(__file__), "--phase", g], GROUP_LIMITS[g])
         if run["status"] == "cut":
             log(f"chip_smoke: phase group {g} cut after {run['seconds']:.1f} s (limit "
@@ -2904,8 +2700,6 @@ def main() -> int:
     for g in ("20-24", "25-28"):
         k1.update(results[g]["launches"]["stencil2d_half"])
         k2.update(results[g]["launches"]["stencil3d_half"])
-    k1.update(results["29"]["stencil2d_half"])
-    k2.update(results["29"]["stencil3d_half"])
     k3_run = results["30-32"]["k3"]
     main = k3_run["shapes"][0]  # 2D finest z lines, float32
     k3 = {key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2920,7 +2714,6 @@ def main() -> int:
             k3.setdefault(f"launches_screen_{row['preconditioner']}", row["launches"]["pcr_lines"])
     for g in ("20-24", "25-28"):
         k3.update(results[g]["launches"]["pcr_lines"])
-    k3.update(results["29"]["pcr_lines"])
     k3["shapes"] = [{key: r[key] for key in ("shape", "b", "axis", "dtype", "ms", "plain_ms",
                                              "bound_ms", "rel_err", "registers", "smem_bytes",
                                              "tile_rows", "blocks_per_sm", "TO", "TI",

@@ -140,3 +140,45 @@ def test_profile_dir_writes_a_trace(tmp_path):
     text = open(files[0]).read()
     assert "remo3d_tpu_torch.solve_chunk" in text
     assert np.isfinite(m.logs[TOOL][:, 1]).all()
+
+
+_CHECKPOINT_KEY = runtime.Executor._checkpoint_key
+
+
+def key_of_run(monkeypatch, path, formation=FORMATION, **kwargs):
+    """(key, executor, arguments) of the one checkpoint key that a 2-depth
+    log checkpointed into ``path`` computes."""
+    calls = []
+
+    def spy(self, *args):
+        key = _CHECKPOINT_KEY(self, *args)
+        calls.append((key, self, args))
+        return key
+
+    monkeypatch.setattr(runtime.Executor, "_checkpoint_key", spy)
+    log(formation, BOREHOLE, np.array([0.0, 0.2]), checkpoint=str(path), **kwargs)
+    assert len(calls) == 1
+    return calls[0]
+
+
+@pytest.mark.parametrize("change", ["none", "tol", "n_ranks", "resistivity"])
+def test_checkpoint_key(tmp_path, monkeypatch, change):
+    """The same inputs give the same key; another tolerance, another world
+    size or a same-shape formation with one resistivity edited gives another,
+    whose shape part (measurements x tools | batches x slots | grid) is the
+    same."""
+    key, executor, args = key_of_run(monkeypatch, tmp_path / "a.npz")
+    if change == "none":
+        other = key_of_run(monkeypatch, tmp_path / "b.npz")[0]
+    elif change == "tol":
+        other = key_of_run(monkeypatch, tmp_path / "b.npz", tol=1e-6)[0]
+    elif change == "n_ranks":
+        *head, n_ranks, grid_shape = args
+        assert n_ranks == 1
+        other = _CHECKPOINT_KEY(executor, *head, 2, grid_shape)
+    else:
+        edited = FORMATION.copy()
+        edited[1, 4] = 31.0
+        other = key_of_run(monkeypatch, tmp_path / "b.npz", formation=edited)[0]
+    assert (other == key) == (change == "none")
+    assert other.split("|")[:3] == key.split("|")[:3]

@@ -497,6 +497,24 @@ def test_tile_plan_at_the_3d_log_shapes():
     assert r2.stages == 7 and r2.smem == _smem(5, r2.TO * 41, 13, 4)
 
 
+def test_pcr_kernel_bytes_at_the_main_shapes():
+    """K3's least bytes at the main paths' finest shapes (PERF.md's kernel
+    table), n (2k + 1) - 2 (2^k - 1) coefficients a line: 2D z lines
+    (74,5,761x161) 10 levels 1026.7 MB, r lines 8 levels 864.3 MB; 3D
+    (8,5,193x17x49) z 8 levels 125.3 MB, p 5 levels 89.3 MB, r 6 levels 105.1
+    MB. chip_smoke.py's bounds use least_work."""
+    for B, grid, k, axis, mb in (
+            (74, (761, 161), 10, -2, 1026.7), (74, (761, 161), 8, -1, 864.3),
+            (8, (193, 17, 49), 8, -3, 125.3), (8, (193, 17, 49), 5, -2, 89.3),
+            (8, (193, 17, 49), 6, -1, 105.1)):
+        n = grid[axis]
+        assert pcr_lines.coefficient_values(n, k) == n * (2 * k + 1) - 2 * (2**k - 1)
+        got = pcr_lines.least_work(B, 5, grid, axis, k, 4)[0]
+        lines = B * math.prod(grid) // n
+        assert got == 4 * lines * (2 * 5 * n + pcr_lines.coefficient_values(n, k))
+        assert got / 1e6 == pytest.approx(mb, abs=0.05)
+
+
 def test_estimated_cost_prefers_whole_waves():
     """The cost model counts whole waves: 784 blocks of two per SM (2.97
     waves) cost 3 waves, 800 cost 4."""

@@ -111,3 +111,32 @@ def test_device_default_needs_a_card(monkeypatch):
     m.initialize_workers()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         m.simulate_logs(DEPTHS, verbose=False)
+
+
+@pytest.mark.parametrize("fail_residual", [None, 1e30], ids=["default", "1e30"])
+def test_unconverged_solves_give_nan_readouts(fail_residual):
+    """The reference's per-solve NaN containment: a solve whose attained
+    relative residual is above ``fail_residual`` gives NaN readouts, and
+    ``last_report`` counts the failed solves and the NaN readouts. One CG
+    iteration of point Jacobi leaves every residual near 1, so every solve
+    fails at the default 1e-4 and none at 1e30."""
+    overrides = {"preconditioner": "local"}
+    if fail_residual is not None:
+        overrides["fail_residual"] = fail_residual
+    tools = TOOLS[:2]
+    m = remo3d_tpu_torch.Model.compute_synthetic_logs(
+        tools, DEPTHS[:3], FORMATION, BOREHOLE, borehole_geometry_type="radius",
+        grid_spec=TSpec(nz=49, nr=17, n_wall_cells=4, n_blend_cells=2), device="cpu",
+        verbose=False, maxiter=1, executor_overrides=overrides)
+    report = m.last_report
+    vals = np.stack([m.logs[t][:, 1] for t in tools])
+    n_solves = sum(c["solves"] for c in report["chunks"])
+    assert n_solves > 0 and vals.size == len(tools) * 3
+    assert all(c["iterations"] == 1 for c in report["chunks"])
+    if fail_residual is None:
+        assert np.isnan(vals).all()
+        assert report["n_failed_solves"] == n_solves
+        assert report["n_nan_readouts"] == vals.size
+    else:
+        assert np.isfinite(vals).all()
+        assert report["n_failed_solves"] == report["n_nan_readouts"] == 0
