@@ -88,6 +88,107 @@ def test_planner_bit_equal(force_sec):
     _assert_same(jtasks, ttasks, "tasks")
 
 
+_SHUFFLE = np.random.default_rng(7)
+PLANNER_CASES = {
+    # (tool names, force_single_electrode_configuration, measurement depths, batch size)
+    **{f"example01_{n}{suffix}": (EXAMPLE01_TOOLS, force, 0.1 * np.arange(n), 5)
+       for n in (101, 251, 1001) for suffix, force in (("", True), ("_no_sec", False))},
+    # Unsorted, with repeated depths: the first matching index is in the caller's order.
+    **{f"unsorted_repeats{suffix}": (
+        TOOL_NAMES, force, _SHUFFLE.permutation(np.repeat(np.round(np.linspace(-2.0, 4.0, 23), 2), 3)), 5)
+       for suffix, force in (("", True), ("_no_sec", False))},
+    # Above 10 m np.isclose's relative tolerance spans 4-decimal neighbours: depths
+    # 1e-4 apart (and a few 1e-6 off) match several measurement depths and sources.
+    **{f"relative_tolerance{suffix}": (
+        EXAMPLE01_TOOLS, force,
+        12.0 + 1e-4 * _SHUFFLE.integers(0, 40, 60) + _SHUFFLE.choice([0.0, 1e-6, -1e-6], 60), 5)
+       for suffix, force in (("", True), ("_no_sec", False))},
+    # 31 depths in batches of 7: the last batch is padded with NaN.
+    "ragged_batch": (TOOL_NAMES[:5], True, np.arange(0.0, 3.01, 0.1), 7),
+    "ragged_batch_no_sec": (TOOL_NAMES[:5], False, np.arange(0.0, 3.01, 0.1), 7),
+    # Infinite and NaN depths: NaN positions, and a batch's np.unique keeps its NaNs.
+    "nonfinite": (TOOL_NAMES[3:6], True, np.array([0.5, np.inf, 1.5, np.nan, -np.inf, 2.5]), 3),
+    "nonfinite_no_sec": (TOOL_NAMES[3:6], False, np.array([0.5, np.inf, 1.5, np.nan, -np.inf, 2.5]), 3),
+}
+
+
+def _assert_plan_bytes_equal(a, b):
+    """Every array of two plans equal byte for byte, which ``_assert_same`` does
+    not check for the sign of a zero or a NaN's payload."""
+    def arrays(tasks):
+        for t in tasks:
+            yield t.electrode_positions
+            for s in t.solves:
+                yield s.source_positions
+                yield s.source_terms
+                yield from (r.measuring_positions for r in s.readouts)
+
+    for x, y in zip(arrays(a), arrays(b), strict=True):
+        assert x.tobytes() == y.tobytes(), (x, y)
+
+
+@pytest.mark.parametrize("case", sorted(PLANNER_CASES))
+def test_planner_bit_equal_cases(case):
+    names, force, depths, batch_size = PLANNER_CASES[case]
+    jt, jsec = jtools.parse_tools(list(names), force)
+    tt, tsec = ttools.parse_tools(list(names), force)
+    jd, jtasks = jplanner.plan_tasks(jt, jsec, depths, batch_size)
+    td, ttasks = tplanner.plan_tasks(tt, tsec, depths, batch_size)
+    assert jsec == tsec
+    np.testing.assert_array_equal(jd, td)
+    _assert_same(jtasks, ttasks, "tasks")
+    _assert_plan_bytes_equal(jtasks, ttasks)
+
+
+@pytest.mark.parametrize("sec", [True, False])
+def test_planner_synthetic_tools_and_types(sec):
+    """Tools no tool name parses to: sources 1e-4 apart at 10 m, where np.isclose
+    chains (10.0 ~ 10.0001 ~ 10.0002 but not 10.0 ~ 10.0002; a source is dropped
+    only when close to one already kept), a tool with no current electrode
+    (empty source arrays), and one whose measuring electrodes round to -0.0 and
+    +0.0 at its batch's center (the sign a batch's np.unique keeps depends on its
+    sort). The plan is bit-equal to the JAX package's, and its scalars and arrays
+    have the reference's types."""
+    specs = [
+        ("chain", [10.0, 10.0001, 10.0002, 11.0], [1.0, -1.0, 1.0, 0.0], 0.0),
+        ("pair", [-0.5, 10.0001, 12.0], [0.0, 1.0, 0.0], 0.35),
+        ("silent", [-1.0, 1.0], [0.0, 0.0], -1.2345),
+        ("signed_zero", [-1e-5, 0.0, 0.7], [0.0, 0.0, 1.0], 0.05),
+    ]
+    depths = np.array([0.75, 1.95, 1.3, 1.6, 1.55, 2.45, 0.9, 1.3])
+    tools = [
+        {name: mod.ToolParameters(name, np.array(g), np.array(s), 2.5, shift)
+         for name, g, s, shift in specs}
+        for mod in (jtools, ttools)
+    ]
+    jd, jtasks = jplanner.plan_tasks(tools[0], sec, depths, 3)
+    td, ttasks = tplanner.plan_tasks(tools[1], sec, depths, 3)
+    np.testing.assert_array_equal(jd, td)
+    _assert_same(jtasks, ttasks, "tasks")
+    _assert_plan_bytes_equal(jtasks, ttasks)
+
+    solves = [s for t in ttasks for s in t.solves]
+    readouts = [r for s in solves for r in s.readouts]
+    assert all(type(t.center_depth) is float for t in ttasks)
+    assert all(type(s.simulation_depth_index) is int for s in solves)
+    assert all(type(r.offset) is float and type(r.measurement_index) is int
+               and type(r.tool_index) is int for r in readouts)
+    assert all(s.source_positions.dtype == np.float64 and s.source_terms.dtype == np.float64
+               for s in solves)
+    empty = [s for s in solves if s.source_positions.size == 0]
+    assert empty and all(s.source_positions.shape == (0,) == s.source_terms.shape for s in empty)
+    # The chain's kept sources relative to its first: in SEC mode some solve drops
+    # the middle one (close to the first) and keeps the third (close only to the
+    # middle); without SEC nothing is dropped.
+    chain = [np.round(p[np.abs(p - p[0]) < 0.01] - p[0], 4).tolist()
+             for p in (s.source_positions for s in solves if s.readouts[0].tool_index == 0)]
+    assert chain and ([0.0, 0.0002] in chain if sec
+                      else all(c == [0.0, 0.0001, 0.0002] for c in chain))
+    # A solve at its batch's center reads at -0.0 and +0.0.
+    assert any(np.signbit(r.measuring_positions[r.measuring_positions == 0]).any()
+               for r in readouts)
+
+
 @pytest.mark.parametrize("name", sorted(FORMATIONS))
 def test_io_carve_grid2d_bit_equal(name):
     formation, borehole = FORMATIONS[name]
